@@ -1,0 +1,178 @@
+"""Dither step: the counterpart of tiler_tpu/pipeline/dither_step.py for
+the default path (Knoll dithering, DL3 palettes).
+
+Per keyframe: gather its source tiles on the device, PsyV (LAB) features
+and k-means into palette_count groups (prepare); DL3 per group on the
+host in a worker thread (quantize), overlapping the next keyframe's
+prepare; sort palettes by use (finish); then the Knoll scan over every
+active tile and the mirror canonicalization, both on the device.
+"""
+from __future__ import annotations
+
+import concurrent.futures as cf
+import os
+import time
+
+import numpy as np
+import torch
+
+from tiler_tpu.constants import TILE_W
+
+from ..ops import dither, features, palette
+from ..ops.kmeans import kmeans_core
+from .state import EncoderState
+
+
+def _dithering_gamma(cfg):
+    return cfg.encoder_gamma if cfg.dithering_gamma else None
+
+
+def prepare_dither_keyframe(state: EncoderState, k: int) -> None:
+    """PsyV(LAB) features of every tile keyframe k references, clustered
+    into palette_count groups (PrepareDitherTiles): writes the labels to
+    tile_dpi and the centroids to palette_centroids[k]."""
+    cfg = state.config
+    s, e = state.keyframes[k]
+    cell_tiles = state.tm_tile[s:e + 1].ravel()
+    n = len(cell_tiles)
+    if n > 1 and cfg.palette_count > 1:
+        idx = torch.from_numpy(cell_tiles.astype(np.int64)).to(state.device)
+        feats = features.psyv_features_rgb(
+            state.device_source_tiles()[idx],
+            gamma_value=_dithering_gamma(cfg), use_lab=True,
+            use_wavelets=cfg.use_wavelets)
+        labels_d, cents_d, _ = kmeans_core(feats, cfg.palette_count)
+        labels = labels_d.cpu().numpy()
+        state.palette_centroids[k] = cents_d.cpu().numpy()
+    else:
+        labels = np.zeros(n, np.int32)
+    state.tile_dpi[cell_tiles] = labels
+
+
+def quantize_keyframe_palettes(state: EncoderState, k: int) -> np.ndarray:
+    """DL3 palettes of keyframe k, one per k-means group, entries in LHS
+    order. Returns use counts [P] (by tile refs)."""
+    cfg = state.config
+    s, e = state.keyframes[k]
+    cell_tiles = state.tm_tile[s:e + 1].ravel()
+    active = state.tile_active[cell_tiles]
+    dpi = state.tile_dpi[cell_tiles]
+    use_counts = np.zeros(cfg.palette_count, np.int64)
+    pal_indexes = np.zeros((cfg.palette_count, cfg.tile_palette_size),
+                           np.uint32)
+
+    def quantize_one(p: int):
+        sel = cell_tiles[active & (dpi == p)]
+        use_counts[p] = len(sel)
+        pal16 = palette.dl3_palette_tiles(
+            state.tiles_rgb, sel, cfg.tile_palette_size, cfg.dl3_bpc,
+            cfg.dl3_bin_cap)
+        pal_indexes[p] = palette.sort_palette_lhs(
+            palette.rgb_to_packed(pal16))
+
+    # the native DL3 call releases the interpreter lock
+    workers = min(os.cpu_count() or 1, 8)
+    with cf.ThreadPoolExecutor(workers) as ex:
+        list(ex.map(quantize_one, range(cfg.palette_count)))
+    state.palettes_rgb[k] = palette.packed_to_rgb(pal_indexes)
+    return use_counts
+
+
+def finish_quantize_keyframe(state: EncoderState, k: int,
+                             use_counts: np.ndarray) -> None:
+    """Sort whole palettes by use count desc (stable by original index)
+    and remap DitheringPalIndex (FinishQuantizePalette)."""
+    cfg = state.config
+    order = np.lexsort((np.arange(cfg.palette_count), -use_counts))
+    lut = np.empty(cfg.palette_count, np.int32)
+    lut[order] = np.arange(cfg.palette_count)
+    state.palettes_rgb[k] = state.palettes_rgb[k][order]
+    state.palette_centroids[k] = state.palette_centroids[k][order]
+    s, e = state.keyframes[k]
+    cell_tiles = state.tm_tile[s:e + 1].ravel()
+    state.tile_dpi[cell_tiles] = lut[state.tile_dpi[cell_tiles]]
+
+
+def canonicalize_mirrors(tiles_u8: torch.Tensor):
+    """PrepareTileMirrors (main.pas:4049-4069): pick the mirror whose
+    source quadrant has the highest sum (first max in (vf,hf) scan
+    order) and bake it into the pixels. [N,8,8] uint8 -> (baked [N,8,8]
+    uint8, hmir [N] bool, vmir [N] bool). Zero tiles keep quadrant 0."""
+    n = tiles_u8.shape[0]
+    q = tiles_u8.to(torch.int32).reshape(n, 2, 4, 2, 4).sum((2, 4))
+    best = torch.argmax(q.reshape(n, 4), dim=1)   # first max wins
+    vf = (best >> 1).to(torch.bool)
+    hf = (best & 1).to(torch.bool)
+    t = torch.where(hf[:, None, None], tiles_u8.flip(2), tiles_u8)
+    t = torch.where(vf[:, None, None], t.flip(1), t)
+    return t, hf, vf
+
+
+def run_dither(state: EncoderState) -> EncoderState:
+    """Keyframe k's host DL3 quantize overlaps keyframe k+1's device
+    k-means; the Knoll scans run per keyframe batch once its palettes
+    are final. Phase times: 'prepare_kmeans' is the k-means loop wall,
+    'quantize' the blocked wait on the quantizers, 'dither' the scans."""
+    cfg = state.config
+    if not cfg.use_thomas_knoll or not cfg.use_dl3:
+        raise NotImplementedError('the port dithers with Knoll plans and '
+                                  'DL3 palettes only')
+    n_kf = len(state.keyframes)
+    phases = {}
+    dev = state.device
+    kf_of = state.kf_of_frame()
+    tile_kf = np.repeat(kf_of, state.tilemap_size)  # identity layout
+    act = np.flatnonzero(state.tile_active)
+    act_kf = tile_kf[act]
+    buf = torch.zeros((state.n_tiles, TILE_W, TILE_W), dtype=torch.uint8,
+                      device=dev)
+    # the dedup key's 8-bit group field holds 256 // palette_count
+    # keyframes per scan; with few keyframes each scan starts as soon as
+    # its own quantize is done
+    kb = 1 if n_kf <= 4 else max(1, 256 // cfg.palette_count)
+    t_quant = t_scan = 0.0
+    with cf.ThreadPoolExecutor(1) as qpool:
+        t0 = time.perf_counter()
+        futs = []
+        for k in range(n_kf):
+            prepare_dither_keyframe(state, k)
+            # keyframes' cell ranges are disjoint (identity tilemap), so
+            # quantize(k) reading tile_dpi is safe against prepare(k+1)
+            futs.append(qpool.submit(quantize_keyframe_palettes, state, k))
+        phases['prepare_kmeans'] = time.perf_counter() - t0
+        for b0 in range(0, n_kf, kb):
+            batch = range(b0, min(b0 + kb, n_kf))
+            t0 = time.perf_counter()
+            for k in batch:
+                finish_quantize_keyframe(state, k, futs[k].result())
+            t_quant += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rows = np.flatnonzero((act_kf >= batch.start)
+                                  & (act_kf < batch.stop))
+            if rows.size:
+                idx = torch.from_numpy(act[rows].astype(np.int64)).to(dev)
+                dpi_rows = np.maximum(state.tile_dpi[act[rows]], 0)
+                groups = ((act_kf[rows] - batch.start) * cfg.palette_count
+                          + dpi_rows)
+                group_pals = state.palettes_rgb[batch.start:batch.stop] \
+                    .reshape(-1, cfg.tile_palette_size, 3)
+                buf[idx] = dither.knoll_dither_tiles_cached(
+                    state.device_source_tiles()[idx], group_pals,
+                    torch.from_numpy(groups.astype(np.int64)).to(dev))
+            if dev.type == 'cuda':
+                torch.cuda.synchronize(dev)
+            t_scan += time.perf_counter() - t0
+    phases['quantize'] = t_quant
+    phases['dither'] = t_scan
+    state.metrics['dither_phases'] = {k: round(v, 3)
+                                      for k, v in phases.items()}
+
+    baked, hf, vf = canonicalize_mirrors(buf)
+    state.set_tiles_pal_device(baked)
+    hf, vf = hf.cpu().numpy(), vf.cpu().numpy()
+    f, th, tw = state.tm_tile.shape
+    flat_tiles = state.tm_tile.reshape(-1)
+    state.tm_pal = state.tile_dpi[flat_tiles].reshape(f, th, tw).copy()
+    state.tm_h = hf[flat_tiles].reshape(f, th, tw)
+    state.tm_v = vf[flat_tiles].reshape(f, th, tw)
+    return state

@@ -1,0 +1,130 @@
+"""GlobalTiling step: reduce the tileset to a budget with KModes — the
+counterpart of the device path of tiler_tpu/pipeline/global_tiling.py
+(GTS reload and KModes restarts are not ported yet).
+
+Per active tile an 80-byte signature (64 palette indices + 16 zone
+flags) is built on the device; tiles are binned by DitheringPalIndex,
+the budget is shared by EqualQualityTileCount, every bin is solved in one
+batched KModes call, and each cluster merges into its winner. Then the
+global MakeUnique and Reindex run.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from tiler_tpu.constants import KMODES_ZONE_COUNT, equal_quality_tile_count
+
+from ..ops.kmodes import kmodes_batch_gather
+from .reindex import run_reindex
+from .state import EncoderState
+from .unique import run_make_unique
+
+
+def tile_signatures(tiles_u8: torch.Tensor, idx: torch.Tensor,
+                    palette_size: int):
+    """[R,80] uint8 KModes lines of tiles idx, and their byte sums."""
+    flat = tiles_u8[idx].reshape(idx.shape[0], 64).to(torch.int32)
+    zone_of = flat * KMODES_ZONE_COUNT // palette_size
+    zr = torch.arange(KMODES_ZONE_COUNT, device=flat.device)
+    acc = torch.sum(zone_of[:, :, None] == zr, dim=1, dtype=torch.int32)
+    zones = (acc > palette_size // KMODES_ZONE_COUNT).to(torch.uint8)
+    sigs = torch.cat([flat.to(torch.uint8), zones], dim=1)
+    return sigs, torch.sum(sigs.to(torch.int64), dim=1)
+
+
+def compute_global_tiling_fwd_device(state: EncoderState, cfg,
+                                     desired_tiles: int):
+    """Returns (fwd, new_use, new_active, merges) for the device tiles."""
+    phases = {}
+    t0 = time.perf_counter()
+    n = state.n_tiles
+    act = np.flatnonzero(state.tile_active)
+    act_d = torch.from_numpy(act.astype(np.int64)).to(state.device)
+    sigs, sums_d = tile_signatures(state.device_tiles_pal(), act_d,
+                                   cfg.tile_palette_size)
+    sums = sums_d.cpu().numpy()
+    dpi = state.tile_dpi[act]
+
+    bin_sizes = np.bincount(np.maximum(dpi, 0), minlength=cfg.palette_count)
+    eqtc = np.array([equal_quality_tile_count(s) for s in bin_sizes])
+    share = desired_tiles / max(eqtc.sum(), 1)
+    cluster_counts = np.ceil(eqtc * share).astype(np.int64)
+
+    jobs = []
+    for p in range(cfg.palette_count):
+        sel = np.flatnonzero(dpi == p)
+        n_bin, k = len(sel), int(cluster_counts[p])
+        if n_bin == 0 or n_bin <= k or k == 0:
+            continue
+        s = sums[sel]
+        # starting point: the line with the smallest byte sum, last one
+        # on ties (main.pas:4301-4308 uses <=)
+        start = int(np.flatnonzero(s == s.min())[-1])
+        jobs.append(dict(sel=sel, k=k, start=start))
+    phases['sigs_bins'] = round(time.perf_counter() - t0, 3)
+    t0 = time.perf_counter()
+
+    iters: list = []
+    solved = kmodes_batch_gather(
+        sigs, [j['sel'] for j in jobs], [j['k'] for j in jobs],
+        [j['start'] for j in jobs], cfg.tile_palette_size,
+        iters_out=iters)
+    phases['solve'] = round(time.perf_counter() - t0, 3)
+    state.metrics['gt_iters'] = iters
+    t0 = time.perf_counter()
+
+    merges = 0
+    fwd = np.arange(n)
+    new_use = state.tile_use.copy()
+    new_active = state.tile_active.copy()
+    for job, (labels, winner) in zip(jobs, solved):
+        sel, k = job['sel'], job['k']
+        global_idx = act[sel]
+        members = np.bincount(labels, minlength=k)
+        merged = members >= 2
+        if not merged.any():
+            continue
+        win_global = np.where(winner >= 0, global_idx[winner], 0)
+        use_sum = np.bincount(labels, weights=new_use[global_idx],
+                              minlength=k).astype(np.int64)
+        is_loser = merged[labels] & (global_idx != win_global[labels])
+        losers = global_idx[is_loser]
+        fwd[losers] = win_global[labels[is_loser]]
+        new_use[win_global[merged]] += (use_sum
+                                        - new_use[win_global])[merged]
+        new_use[losers] = 0
+        new_active[losers] = False
+        merges += len(losers)
+    phases['merge_host'] = round(time.perf_counter() - t0, 3)
+    state.metrics['gt_phases'] = phases
+    return fwd, new_use, new_active, merges
+
+
+def run_global_tiling(state: EncoderState) -> EncoderState:
+    cfg = state.config
+    if cfg.reload_tileset or cfg.kmodes_restarts > 0:
+        raise NotImplementedError('GTS reload and KModes restarts are not '
+                                  'ported')
+    raw = state.n_frames * state.tilemap_size
+    budget = cfg.max_tiles if cfg.max_tiles > 0 else \
+        round(cfg.qb_tiles * equal_quality_tile_count(raw))
+    desired_tiles = min(budget, raw)
+
+    fwd, new_use, new_active, merges = compute_global_tiling_fwd_device(
+        state, cfg, desired_tiles)
+    state.tile_use = new_use
+    state.tile_active = new_active
+    state.tm_tile = fwd[state.tm_tile].astype(np.int32)
+    state.metrics['global_tiling_merged'] = merges
+    t0 = time.perf_counter()
+    run_make_unique(state)
+    t1 = time.perf_counter()
+    run_reindex(state)
+    gp = state.metrics['gt_phases']
+    gp['gt_unique'] = round(t1 - t0, 3)
+    gp['gt_reindex'] = round(time.perf_counter() - t1, 3)
+    gp['unique_reindex'] = round(time.perf_counter() - t0, 3)
+    return state

@@ -96,7 +96,11 @@ def _check_frame_tiling(port, want, frames):
     got = np.stack([port.tm_tile, port.tm_pal, port.tm_h, port.tm_v])
     exp = np.stack([want.tm_tile, want.tm_pal, want.tm_h, want.tm_v])
     diff = np.flatnonzero((got != exp).any(0).ravel())
-    assert len(diff) <= 0.001 * port.tm_tile.size
+    # at most 0.1% of the cells differ in their own 1-NN query; an
+    # unchanged cell copies its query's result forward, not counted again
+    queried = port.changed_mask.reshape(len(frames), -1).copy()
+    queried[[s for s, _ in port.keyframes]] = True
+    assert queried.ravel()[diff].sum() <= 0.001 * port.tm_tile.size
     if not len(diff):
         return
     # every differing cell's two choices are a float64 near tie

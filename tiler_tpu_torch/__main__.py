@@ -19,8 +19,13 @@ def _config_from_args(a):
     return EncoderConfig(
         tile_palette_size=a.palette_size, palette_count=a.palette_count,
         qb_tiles=a.qb_tiles, max_tiles=a.max_tiles,
+        use_thomas_knoll=not a.yliluoma, yliluoma_mix=a.yil_mix,
+        use_dl3=not a.use_var, dl3_bpc=a.dl_bpc, pal_var=a.pal_var / 100.0,
+        use_wavelets=not a.no_wavelets,
         ft_quality=FTQuality[a.ft_quality.upper()],
-        smoothing_strength=a.smoothing / 1000.0, fps=a.fps,
+        smoothing_strength=a.smoothing / 1000.0,
+        encoder_gamma=a.enc_gamma, dithering_gamma=a.dithering_gamma,
+        ft_gamma=a.ft_gamma, fps=a.fps, reload_tileset=a.reload_gts,
         lzma_mode=a.lzma_mode)
 
 
@@ -68,7 +73,7 @@ def cmd_decode(a) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog='tiler_tpu_torch')
     sub = ap.add_subparsers(dest='cmd', required=True)
     pe = sub.add_parser('encode', help='encode a .npy clip to GTM')
@@ -79,22 +84,39 @@ def main(argv=None) -> int:
     pe.add_argument('--palette-count', type=int, default=128)
     pe.add_argument('--qb-tiles', type=float, default=2.0)
     pe.add_argument('--max-tiles', type=int, default=0)
+    pe.add_argument('--yliluoma', action='store_true',
+                    help='Yliluoma-2 dithering instead of Thomas Knoll')
+    pe.add_argument('--yil-mix', type=int, default=4)
+    pe.add_argument('--use-var', action='store_true',
+                    help='Value-at-Risk quantizer instead of Dennis Lee v3')
+    pe.add_argument('--dl-bpc', type=int, default=7)
+    pe.add_argument('--pal-var', type=float, default=95.0)
+    pe.add_argument('--no-wavelets', action='store_true')
     pe.add_argument('--ft-quality', choices=['fast', 'medium', 'slow'],
                     default='medium')
     pe.add_argument('--smoothing', type=float, default=20.0,
                     help='temporal smoothing strength x1000')
+    pe.add_argument('--enc-gamma', type=float, default=1.8)
+    pe.add_argument('--dithering-gamma', action='store_true')
+    pe.add_argument('--ft-gamma', action='store_true')
     pe.add_argument('--fps', type=float, default=24.0)
     pe.add_argument('--lzma-mode', choices=('lc3', 'lc8', 'auto', 'best'),
                     default='auto')
     pe.add_argument('--fast-lzma', action='store_true')
     pe.add_argument('--gts-out', default=None,
                     help='also write the final tileset as GTS')
+    pe.add_argument('--reload-gts', default=None,
+                    help='reuse a previous GTS tileset instead of KModes')
     pe.set_defaults(fn=cmd_encode)
     pd = sub.add_parser('decode', help='decode GTM to a .npy clip')
     pd.add_argument('input')
     pd.add_argument('output', help='.npy path')
     pd.set_defaults(fn=cmd_decode)
-    a = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    a = build_parser().parse_args(argv)
     return a.fn(a)
 
 

@@ -40,6 +40,17 @@
 // second axis, each block writes its range's (err, idx), and nn1_merge
 // takes the lexicographic minimum over the ranges. Tensor cores (wgmma,
 // TMA staging) and more blocks per SM are later work.
+//
+// Augmented mode (AUG = true) replaces `_nn_kernel_aug` / `_nn_call_aug`
+// in the same file: the caller folds the norms and the -2 into augmented
+// operands qa = [q, 1, 0 x 7] and ca = [-2c, |c|^2, 0 x 7] (D + 8 = 200
+// columns at D = 192), the score is the plain dot qa.ca = |c|^2 - 2 q.c,
+// and the wrapper adds |q|^2 afterwards. The walk, the tiles, the
+// candidate ranges and the (err, idx) merge are K1's; only the norm sums
+// and the norm adds in the epilogue are compiled out. On the TPU this
+// variant was slower (64.2 vs 69.9 TF/s: the MXU paid for the 8 extra
+// contraction columns); here it trades 4% more FFMAs (200 vs 192 columns)
+// for the norm work, which K1 keeps off the FFMA loop already.
 #include <cuda_runtime.h>
 #include <limits.h>
 
@@ -67,6 +78,7 @@ __device__ __forceinline__ int kpad_of(int dim) {
   return (dim + BK - 1) / BK * BK;
 }
 
+template <bool AUG>
 __global__ void __launch_bounds__(NT, 1)
 nn1_kernel(const float* __restrict__ q, const float* __restrict__ c,
            int n_q, int n_c, int dim, int tiles_per_range,
@@ -122,9 +134,9 @@ nn1_kernel(const float* __restrict__ q, const float* __restrict__ c,
 #pragma unroll
     for (int i = 0; i < LOADS; ++i) {
       cb[kl * LDC + tid / BK + ROWS_PER_PASS * i] = pre[i];
-      part[i] = fmaf(pre[i], pre[i], part[i]);
+      if (!AUG) part[i] = fmaf(pre[i], pre[i], part[i]);
     }
-    if (st - t * n_k == n_k - 1) {  // the tile's last slice: norms done
+    if (!AUG && st - t * n_k == n_k - 1) {  // the tile's last slice: norms
 #pragma unroll
       for (int i = 0; i < LOADS; ++i) {
         float v = part[i];
@@ -142,7 +154,7 @@ nn1_kernel(const float* __restrict__ q, const float* __restrict__ c,
     commit(0);
   }
   __syncthreads();
-  if (tid < BQ) {
+  if (!AUG && tid < BQ) {
     float s = 0.f;
     for (int k = 0; k < dim; ++k)
       s = fmaf(qs[k * BQ + tid], qs[k * BQ + tid], s);
@@ -151,7 +163,7 @@ nn1_kernel(const float* __restrict__ q, const float* __restrict__ c,
   __syncthreads();
   float q2[TM];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) q2[i] = q2s[q_row(ty, i)];
+  for (int i = 0; i < TM; ++i) q2[i] = AUG ? 0.f : q2s[q_row(ty, i)];
 
   float run_e[TM];
   int run_i[TM];
@@ -210,7 +222,8 @@ nn1_kernel(const float* __restrict__ q, const float* __restrict__ c,
           const int col = (j >> 2) * 64 + tx * 4 + (j & 3);
           const int gc = c0 + col;
           if (gc < c_hi) {
-            const float d = (q2[i] + c2b[col]) - 2.f * acc[i][j];
+            const float d =
+                AUG ? acc[i][j] : (q2[i] + c2b[col]) - 2.f * acc[i][j];
             if (lex_less(d, gc, be, bi)) { be = d; bi = gc; }
           }
           acc[i][j] = 0.f;
@@ -261,35 +274,28 @@ __global__ void nn1_merge(const float* __restrict__ part_err,
   idx_out[gq] = bi;
 }
 
-}  // namespace
-
-extern "C" {
-
 // Shared memory the kernel needs for a feature width of `dim`.
-size_t tiler_nn1_smem_bytes(int dim) {
+size_t smem_bytes(int dim) {
   const size_t kpad = (size_t)(dim + BK - 1) / BK * BK;
   return sizeof(float) * (kpad * BQ + 2 * BK * LDC + 2 * BC + BQ);
 }
 
-// Launch on `stream` (a cudaStream_t); allocates nothing, does not
-// synchronise. The candidates are walked as n_range ranges of
-// tiles_per_range 128-row tiles; with n_range > 1 the caller provides
-// part_err/part_idx of n_range * n_q elements and no range may be empty.
-// Returns cudaGetLastError() after the launches (0 = success).
-int tiler_nn1(const void* q, const void* c, int n_q, int n_c, int dim,
-              int n_range, int tiles_per_range, void* err_out,
-              void* idx_out, void* part_err, void* part_idx, void* stream) {
+template <bool AUG>
+int launch(const void* q, const void* c, int n_q, int n_c, int dim,
+           int n_range, int tiles_per_range, void* err_out, void* idx_out,
+           void* part_err, void* part_idx, void* stream) {
   if (n_q <= 0) return 0;
   if (n_range < 1 || tiles_per_range < 1 ||
       (n_range > 1 && (part_err == nullptr || part_idx == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = tiler_nn1_smem_bytes(dim);
+  const size_t smem = smem_bytes(dim);
   cudaError_t rc = cudaFuncSetAttribute(
-      nn1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      nn1_kernel<AUG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (rc != cudaSuccess) return (int)rc;
   const cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((n_q + BQ - 1) / BQ, n_range);
-  nn1_kernel<<<grid, NT, smem, st>>>(
+  nn1_kernel<AUG><<<grid, NT, smem, st>>>(
       (const float*)q, (const float*)c, n_q, n_c, dim, tiles_per_range,
       (float*)(n_range > 1 ? part_err : err_out),
       (int*)(n_range > 1 ? part_idx : idx_out));
@@ -299,6 +305,32 @@ int tiler_nn1(const void* q, const void* c, int n_q, int n_c, int dim,
       (const float*)part_err, (const int*)part_idx, n_q, n_range,
       (float*)err_out, (int*)idx_out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch on `stream` (a cudaStream_t); allocates nothing, does not
+// synchronise. The candidates are walked as n_range ranges of
+// tiles_per_range 128-row tiles; with n_range > 1 the caller provides
+// part_err/part_idx of n_range * n_q elements and no range may be empty.
+// Returns cudaGetLastError() after the launches (0 = success).
+int tiler_nn1(const void* q, const void* c, int n_q, int n_c, int dim,
+              int n_range, int tiles_per_range, void* err_out,
+              void* idx_out, void* part_err, void* part_idx, void* stream) {
+  return launch<false>(q, c, n_q, n_c, dim, n_range, tiles_per_range,
+                       err_out, idx_out, part_err, part_idx, stream);
+}
+
+// The augmented mode: q and c are the [*, dim] augmented operands, and
+// err_out receives the scores |c|^2 - 2 q.c (|q|^2 not added).
+int tiler_nn1_aug(const void* q, const void* c, int n_q, int n_c, int dim,
+                  int n_range, int tiles_per_range, void* err_out,
+                  void* idx_out, void* part_err, void* part_idx,
+                  void* stream) {
+  return launch<true>(q, c, n_q, n_c, dim, n_range, tiles_per_range,
+                      err_out, idx_out, part_err, part_idx, stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,7 @@
 
 Rec.709 YUV, Wright-Guild/D50 CIELAB and the integer ColorCompare, on
 tensors of any device; the integer HSV helpers stay numpy (they run on
-the host inside the palette sort).
+the host inside the palette sort and the VAR quantizer).
 """
 from __future__ import annotations
 
@@ -110,3 +110,25 @@ def rgb_to_hsv_int_np(rgb):
     hh = np.where(nz, np.fmod(hh, 252).astype(np.int64) & 0xff, 0)
     return (hh.astype(np.uint8), (ss & 0xff).astype(np.uint8),
             (mx & 0xff).astype(np.uint8))
+
+
+def hsv_to_rgb_int_np(h, s, v):
+    """Vectorized integer HSV->RGB (main.pas:3545-3579)."""
+    h = np.asarray(h, np.int64) % 252
+    s = np.asarray(s, np.int64)
+    v = np.asarray(v, np.int64)
+    f = h % 42
+    hi = h // 42
+    ls = v * s
+    p = v - ls // 255
+    q = v - (ls * f) // (255 * 42)
+    r_ = v - (ls * (42 - f)) // (255 * 42)
+    cases = np.stack([
+        np.stack([v, r_, p], -1), np.stack([q, v, p], -1),
+        np.stack([p, v, r_], -1), np.stack([p, q, v], -1),
+        np.stack([r_, p, v], -1), np.stack([v, p, q], -1),
+    ])  # [6, ..., 3]
+    out = np.take_along_axis(
+        cases, np.clip(hi, 0, 5)[None, ..., None], axis=0)[0]
+    gray = np.broadcast_to(v[..., None], out.shape)
+    return np.where((s == 0)[..., None], gray, out).astype(np.uint8)

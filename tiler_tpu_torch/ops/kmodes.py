@@ -1,16 +1,22 @@
 """Batched KModes over uint8 tile signatures: the counterpart of the
-GlobalTiling path of tiler_tpu/ops/kmodes.py (kmodes_batch_gather with
-a single computed start per bin; restarts are not ported yet).
+GlobalTiling path of tiler_tpu/ops/kmodes.py (kmodes_batch_gather).
 
-Every bin is a lane of one batched solve (the JAX package's vmap written
-out as a leading dimension): farthest-first init, then batch Lloyd-style
-iterations that stop per lane when the exact integer cost stops
-improving or no point moves. The Hamming<<11 + L1 dissimilarity is one
+Every (bin, start) pair is a lane of one batched solve (the JAX
+package's vmap written out as a leading dimension): farthest-first init,
+then batch Lloyd-style iterations that stop per lane when the exact
+integer cost stops improving or no point moves. A bin with restarts
+gets one lane per golden-ratio start, and the lane with the lowest cost
+wins, the first on a tie. The Hamming<<11 + L1 dissimilarity is one
 batched f32 matmul of one-hot/threshold encodings; every operand and
-partial sum is a small integer, exact in f32 on any device, so labels and
-winners are byte-identical to the JAX package. Results do not depend on
-how bins are grouped into lanes: padded points and centroids are masked
-out of every argmin, argmax, count and cost.
+partial sum is an integer below 2^24 (at most (A<<11) + 2A(M-1) for M up
+to 256), exact in f32 on any device. A lane whose encodings alone would
+not fit the solve budget (a large bin at many modalities) takes the
+broadcast compare and absolute difference in int32 instead, a block of
+centroids at a time, at A*16 bytes per point. On the card the matmul is
+the faster of the two at every M measured (PERF.md). Labels and winners
+are byte-identical to the JAX package either way. Results do not depend
+on how lanes are grouped into solves: padded points and centroids are
+masked out of every argmin, argmax, count and cost.
 """
 from __future__ import annotations
 
@@ -23,9 +29,28 @@ from tiler_tpu.constants import DISSIM_SUB_MATCHING_BITS
 _BIG = 2 ** 30
 _BITS = DISSIM_SUB_MATCHING_BITS
 _MAX_ITERS = 100
-# lanes x padded points per batched solve: the point-side encodings take
-# ~10 KB per padded point, so this bounds them at ~4 GB
-_POINT_BUDGET = 400_000
+# bytes of device temporaries per batched solve (~400,000 padded points
+# at A=80, M=16)
+_SOLVE_BYTES = 8 << 30
+# broadcast dissimilarity: int32 elements of one centroid block's
+# [lanes, points, block, A] compare
+_BLOCK_ELEMS = 1 << 27
+
+
+def _matmul_bytes(n_pad: int, k_pad: int, m: int, a: int) -> int:
+    """Device bytes one lane of the matmul path holds: per padded point,
+    the f32 one-hot and threshold encodings and their concatenation
+    (A*(4M-2) floats); per cluster, the [A, M] category counts."""
+    return n_pad * 4 * a * (4 * m - 2) + k_pad * a * m * 4
+
+
+def _lane_bytes(n_pad: int, k_pad: int, m: int, a: int) -> int:
+    """Device bytes one lane of a solve holds: the matmul path's when one
+    lane of it fits _SOLVE_BYTES, else the broadcast path's (per padded
+    point the int32 point and its running minimum, A*16 bytes, as the JAX
+    package budgets its broadcast path)."""
+    mm = _matmul_bytes(n_pad, k_pad, m, a)
+    return mm if mm <= _SOLVE_BYTES else n_pad * a * 16 + k_pad * a * m * 4
 
 
 def _dis_to(xi: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -54,9 +79,9 @@ def _farthest_first(x, xi, k: int, valid_n, start):
 
 
 class _Encodings:
-    """Point-side one-hot/threshold encodings, built once per solve:
-    d = (A<<BITS) + sum(thr_x) + sum(thr_c) - X @ C.T with
-    X = [onehot(x), thr(x)] and C = [onehot(c)<<BITS, 2*thr(c)]."""
+    """The matmul path: point-side one-hot/threshold encodings, built
+    once per solve: d = (A<<BITS) + sum(thr_x) + sum(thr_c) - X @ C.T
+    with X = [onehot(x), thr(x)] and C = [onehot(c)<<BITS, 2*thr(c)]."""
 
     def __init__(self, xi: torch.Tensor, m: int):
         g, n, a = xi.shape
@@ -69,7 +94,8 @@ class _Encodings:
         self.gx_sum = torch.sum(gx, dim=2)
         self.x_cat = torch.cat([self.ex, gx], dim=2)
 
-    def dissim(self, cents: torch.Tensor, valid_k) -> torch.Tensor:
+    def assign(self, cents: torch.Tensor, valid_k):
+        """(labels [G,n], their dissimilarities [G,n]): first minimum."""
         g, k, a = cents.shape
         ci = cents.long()
         ec = F.one_hot(ci, self.m).to(torch.float32).reshape(
@@ -81,35 +107,87 @@ class _Encodings:
         gc_sum = torch.sum(gc, dim=2) * 0.5
         d = (float(a << _BITS) + self.gx_sum[:, :, None]
              + gc_sum[:, None, :] - dot).to(torch.int32)
-        return torch.where(valid_k[:, None, :], d, _BIG)
+        d = torch.where(valid_k[:, None, :], d, _BIG)
+        lab = torch.argmin(d, dim=2)
+        return lab, torch.gather(d, 2, lab[:, :, None])[:, :, 0]
+
+    def counts(self, lab1h: torch.Tensor, labels, valid_n) -> torch.Tensor:
+        """[G,k,A,M] category counts of the members lab1h [G,n,k] bool."""
+        g, _, k = lab1h.shape
+        return torch.bmm(lab1h.to(torch.float32).transpose(1, 2),
+                         self.ex).reshape(g, k, self.a, self.m)
+
+
+class _Broadcast:
+    """The broadcast path, for lanes too large for the matmul's
+    encodings (the JAX package's dissim_matrix and segment-sum update):
+    the int32 Hamming<<11 + L1 of every point against a block of
+    centroids at a time, keeping a running first minimum, so only the
+    points and [G,n] minima stay resident."""
+
+    def __init__(self, xi: torch.Tensor, m: int):
+        self.xi, self.m = xi, m
+
+    def assign(self, cents: torch.Tensor, valid_k):
+        g, n, a = self.xi.shape
+        k = cents.shape[1]
+        ci = cents.to(torch.int32)
+        block = max(1, _BLOCK_ELEMS // max(1, g * n * a))
+        best = torch.full((g, n), _BIG + 1, dtype=torch.int32,
+                          device=self.xi.device)
+        lab = torch.zeros((g, n), dtype=torch.int64, device=self.xi.device)
+        for k0 in range(0, k, block):
+            c = ci[:, None, k0:k0 + block, :]
+            x = self.xi[:, :, None, :]
+            d = (torch.sum(x != c, dim=3, dtype=torch.int32) << _BITS) \
+                + torch.sum(torch.abs(x - c), dim=3, dtype=torch.int32)
+            d = torch.where(valid_k[:, None, k0:k0 + block], d, _BIG)
+            j = torch.argmin(d, dim=2)
+            v = torch.gather(d, 2, j[:, :, None])[:, :, 0]
+            take = v < best                    # earlier block wins a tie
+            best = torch.where(take, v, best)
+            lab = torch.where(take, j + k0, lab)
+        return lab, best
+
+    def counts(self, lab1h: torch.Tensor, labels, valid_n) -> torch.Tensor:
+        """[G,k,A,M] category counts of the valid points' labels, by an
+        integer scatter-add (order-free, so exact on any device)."""
+        g, n, k = lab1h.shape
+        a, m = self.xi.shape[2], self.m
+        dev = labels.device
+        ids = ((labels[:, :, None] * a + torch.arange(a, device=dev)) * m
+               + self.xi.long()
+               + (torch.arange(g, device=dev) * (k * a * m))[:, None, None])
+        counts = torch.zeros(g * k * a * m, dtype=torch.int32, device=dev)
+        counts.index_add_(0, ids[valid_n].reshape(-1),
+                          torch.ones(int(valid_n.sum()) * a,
+                                     dtype=torch.int32, device=dev))
+        return counts.reshape(g, k, a, m)
 
 
 def _solve(x: torch.Tensor, valid_n, valid_k, start, m: int):
     """One batched solve: x [G,n,A] uint8. Returns (labels [G,n],
-    winner [G,k] (negative = empty cluster), iters [G])."""
+    winner [G,k] (negative = empty cluster), iters [G], cost [G])."""
     g, n, a = x.shape
     k = valid_k.shape[1]
     lanes = torch.arange(g, device=x.device)
     xi = x.to(torch.int32)
     cents = _farthest_first(x, xi, k, valid_n, start)
-    enc = _Encodings(xi, m)
+    enc = _Encodings(xi, m) if _matmul_bytes(n, k, m, a) <= _SOLVE_BYTES \
+        else _Broadcast(xi, m)
     kr = torch.arange(k, device=x.device)
 
     def assign(cents):
-        d = enc.dissim(cents, valid_k)
-        lab = torch.argmin(d, dim=2)                 # first minimum
-        dmin = torch.gather(d, 2, lab[:, :, None])[:, :, 0]
+        lab, dmin = enc.assign(cents, valid_k)       # first minimum
         # the exact total; the JAX package's normalized (hi, mid, lo)
         # int32 digit triple is its mixed-radix form, so they order alike
         cost = torch.sum(torch.where(valid_n, dmin, 0).long(), dim=1)
         return lab, cost
 
     def update(cents, labels):
-        lab1h = ((labels[:, :, None] == kr) & valid_n[:, :, None]
-                 ).to(torch.float32)
-        counts = torch.bmm(lab1h.transpose(1, 2), enc.ex).reshape(
-            g, k, a, m)
-        new_c = torch.argmax(counts, dim=3).to(torch.uint8)
+        lab1h = (labels[:, :, None] == kr) & valid_n[:, :, None]
+        new_c = torch.argmax(enc.counts(lab1h, labels, valid_n), dim=3) \
+            .to(torch.uint8)
         empty = (torch.sum(lab1h, dim=1) == 0) & valid_k
         own = torch.gather(new_c, 1, labels[:, :, None].expand(-1, -1, a))
         d_own = torch.sum(torch.abs(xi - own.to(torch.int32)), dim=2,
@@ -138,8 +216,8 @@ def _solve(x: torch.Tensor, valid_n, valid_k, start, m: int):
         moves = torch.where(active, new_moves, moves)
         iters = iters + active.long()
     cents = update(cents, labels)
-    labels, _ = assign(cents)
-    return labels, _winner_from(x, xi, valid_n, labels, cents), iters
+    labels, cost = assign(cents)
+    return labels, _winner_from(x, xi, valid_n, labels, cents), iters, cost
 
 
 def _winner_from(x, xi, valid_n, labels, cents):
@@ -163,58 +241,91 @@ def _winner_from(x, xi, valid_n, labels, cents):
     return win.reshape(g, k)
 
 
+def golden_ratio_starts(n: int, num_init: int) -> list[int]:
+    """Multi-restart starting points spread by repeated multiplication
+    with n^(1/num_init) (kmodes.pas:949-966): strictly increasing,
+    clamped to [0, n-1]; float32 accumulation as in the reference's
+    Single math and the JAX package."""
+    inv = np.float32(float(n) ** (1.0 / num_init))
+    acc = np.float32(1.0)
+    out: list[int] = []
+    for i in range(num_init):
+        sp = int(np.round(acc)) - 1  # round half to even, as Pascal Round
+        if i > 0 and sp <= out[-1]:
+            sp = min(n - 1, out[-1] + 1)
+        out.append(sp)
+        acc = np.float32(acc * inv)
+    return out
+
+
 def kmodes_batch_gather(sigs: torch.Tensor, bins_sel: list[np.ndarray],
                         bins_k: list[int], bins_start: list[int],
                         n_modalities: int, iters_out: list | None = None):
     """Solve one KModes problem per bin against the device signature
-    matrix sigs [A_rows, 80] uint8: bin i clusters rows bins_sel[i] into
-    bins_k[i] groups, farthest-first from local row bins_start[i] (>= 0).
+    matrix sigs [A_rows, A] uint8: bin i clusters rows bins_sel[i] into
+    bins_k[i] groups, farthest-first from local row bins_start[i] >= 0,
+    or, for bins_start[i] < 0, from each of |bins_start[i]| golden-ratio
+    starts, the lowest-cost run winning (the first on a tie,
+    kmodes.pas:1046-1053).
 
-    Bins are grouped into lanes of one batched solve, smallest first, so
-    that lanes x padded points stay within _POINT_BUDGET.
+    Every (bin, start) pair is a lane; lanes are grouped into batched
+    solves, smallest first, so that each solve's temporaries stay within
+    _SOLVE_BYTES (_lane_bytes per lane at the solve's padded sizes).
 
     Returns [(labels [n_i] int64 np, winner [k_i] np local member
     indices, negative for an empty cluster)]."""
-    if n_modalities > 32:
-        raise NotImplementedError('the matmul dissimilarity needs <= 32 '
-                                  'modalities')
-    if any(s < 0 for s in bins_start):
-        raise NotImplementedError('KModes restarts are not ported')
     dev = sigs.device
-    b = len(bins_sel)
-    out: list = [None] * b
-    order = sorted(range(b), key=lambda i: len(bins_sel[i]))
-    chunks, cur = [], []
-    for i in order:
-        if cur and (len(cur) + 1) * len(bins_sel[i]) > _POINT_BUDGET:
+    a = int(sigs.shape[1])
+    exp_bin, exp_start = [], []
+    for i, st in enumerate(bins_start):
+        starts = [st] if st >= 0 else golden_ratio_starts(
+            len(bins_sel[i]), -st)
+        exp_bin += [i] * len(starts)
+        exp_start += starts
+    order = sorted(range(len(exp_bin)),
+                   key=lambda e: len(bins_sel[exp_bin[e]]))
+    chunks, cur, k_max = [], [], 0
+    for e in order:
+        n_e, k_e = len(bins_sel[exp_bin[e]]), bins_k[exp_bin[e]]
+        if cur and (len(cur) + 1) * _lane_bytes(
+                n_e, max(k_max, k_e), n_modalities, a) > _SOLVE_BYTES:
             chunks.append(cur)
-            cur = []
-        cur.append(i)
+            cur, k_max = [], 0
+        cur.append(e)
+        k_max = max(k_max, k_e)
     if cur:
         chunks.append(cur)
+    results: list = [None] * len(exp_bin)
     for lanes in chunks:
-        n_pad = max(len(bins_sel[i]) for i in lanes)
-        k_pad = max(bins_k[i] for i in lanes)
+        bins = [exp_bin[e] for e in lanes]
+        n_pad = max(len(bins_sel[i]) for i in bins)
+        k_pad = max(bins_k[i] for i in bins)
         g = len(lanes)
         idxmat = np.zeros((g, n_pad), np.int64)
         valid_n = np.zeros((g, n_pad), bool)
         valid_k = np.zeros((g, k_pad), bool)
-        for j, i in enumerate(lanes):
+        for j, i in enumerate(bins):
             idxmat[j, :len(bins_sel[i])] = bins_sel[i]
             valid_n[j, :len(bins_sel[i])] = True
             valid_k[j, :bins_k[i]] = True
         x = sigs[torch.from_numpy(idxmat).to(dev)]
-        start = torch.tensor([bins_start[i] for i in lanes],
+        start = torch.tensor([exp_start[e] for e in lanes],
                              dtype=torch.int64, device=dev)
-        labels, winner, iters = _solve(
+        labels, winner, iters, cost = _solve(
             x, torch.from_numpy(valid_n).to(dev),
             torch.from_numpy(valid_k).to(dev), start, n_modalities)
         labels = labels.cpu().numpy()
         winner = winner.cpu().numpy()
         iters = iters.cpu().numpy()
-        for j, i in enumerate(lanes):
-            out[i] = (labels[j, :len(bins_sel[i])], winner[j, :bins_k[i]])
+        cost = cost.cpu().numpy()
+        for j, (e, i) in enumerate(zip(lanes, bins)):
+            results[e] = (labels[j, :len(bins_sel[i])],
+                          winner[j, :bins_k[i]], int(cost[j]))
             if iters_out is not None:
                 iters_out.append((len(bins_sel[i]), bins_k[i],
                                   int(iters[j])))
-    return out
+    out: list = [None] * len(bins_sel)
+    for e, i in enumerate(exp_bin):     # lanes in start order per bin
+        if out[i] is None or results[e][2] < out[i][2]:
+            out[i] = results[e]
+    return [(lab, win) for lab, win, _cost in out]

@@ -1,22 +1,23 @@
-"""Dither step: the counterpart of tiler_tpu/pipeline/dither_step.py for
-the default path (Knoll dithering, DL3 palettes).
+"""Dither step: the counterpart of tiler_tpu/pipeline/dither_step.py.
 
 Per keyframe: gather its source tiles on the device, PsyV (LAB) features
-and k-means into palette_count groups (prepare); DL3 per group on the
-host in a worker thread (quantize), overlapping the next keyframe's
-prepare; sort palettes by use (finish); then the Knoll scan over every
-active tile and the mirror canonicalization, both on the device.
+and k-means into palette_count groups (prepare); DL3 (native) or VAR
+(host numpy) per group on the host in a worker thread (quantize),
+overlapping the next keyframe's prepare; sort palettes by use (finish);
+then the Knoll or Yliluoma scan over every active tile and the mirror
+canonicalization, both on the device.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
+import functools
 import os
 import time
 
 import numpy as np
 import torch
 
-from tiler_tpu.constants import TILE_W
+from tiler_tpu.constants import TILE_W, palette_pattern
 
 from ..ops import dither, features, palette
 from ..ops.kmeans import kmeans_core
@@ -50,27 +51,37 @@ def prepare_dither_keyframe(state: EncoderState, k: int) -> None:
 
 
 def quantize_keyframe_palettes(state: EncoderState, k: int) -> np.ndarray:
-    """DL3 palettes of keyframe k, one per k-means group, entries in LHS
-    order. Returns use counts [P] (by tile refs)."""
+    """DL3 or VAR palettes of keyframe k, one per k-means group, entries
+    in LHS order. Returns use counts [P] (by tile refs)."""
     cfg = state.config
     s, e = state.keyframes[k]
     cell_tiles = state.tm_tile[s:e + 1].ravel()
     active = state.tile_active[cell_tiles]
     dpi = state.tile_dpi[cell_tiles]
     use_counts = np.zeros(cfg.palette_count, np.int64)
+    pattern = palette_pattern(cfg.palette_count, cfg.tile_palette_size)
     pal_indexes = np.zeros((cfg.palette_count, cfg.tile_palette_size),
                            np.uint32)
+    total_budget = (e - s + 1) * state.tilemap_size * TILE_W * TILE_W
 
     def quantize_one(p: int):
         sel = cell_tiles[active & (dpi == p)]
         use_counts[p] = len(sel)
-        pal16 = palette.dl3_palette_tiles(
-            state.tiles_rgb, sel, cfg.tile_palette_size, cfg.dl3_bpc,
-            cfg.dl3_bin_cap)
-        pal_indexes[p] = palette.sort_palette_lhs(
-            palette.rgb_to_packed(pal16))
+        if cfg.use_dl3:
+            pal16 = palette.dl3_palette_tiles(
+                state.tiles_rgb, sel, cfg.tile_palette_size, cfg.dl3_bpc,
+                cfg.dl3_bin_cap)
+            entries = palette.rgb_to_packed(pal16)
+        else:
+            px = state.tiles_rgb[sel].reshape(-1, 3)
+            cols, counts = np.unique(palette.rgb_to_packed(px),
+                                     return_counts=True)
+            entries = palette.var_palette(
+                cols, counts.astype(np.int64), total_budget, cfg.pal_var,
+                cfg.tile_palette_size, cfg.palette_count, pattern[p])
+        pal_indexes[p] = palette.sort_palette_lhs(entries)
 
-    # the native DL3 call releases the interpreter lock
+    # the native DL3 call releases the interpreter lock (VAR does not)
     workers = min(os.cpu_count() or 1, 8)
     with cf.ThreadPoolExecutor(workers) as ex:
         list(ex.map(quantize_one, range(cfg.palette_count)))
@@ -109,14 +120,17 @@ def canonicalize_mirrors(tiles_u8: torch.Tensor):
 
 
 def run_dither(state: EncoderState) -> EncoderState:
-    """Keyframe k's host DL3 quantize overlaps keyframe k+1's device
-    k-means; the Knoll scans run per keyframe batch once its palettes
+    """Keyframe k's host quantize overlaps keyframe k+1's device k-means;
+    the Knoll or Yliluoma scans run per keyframe batch once its palettes
     are final. Phase times: 'prepare_kmeans' is the k-means loop wall,
     'quantize' the blocked wait on the quantizers, 'dither' the scans."""
     cfg = state.config
-    if not cfg.use_thomas_knoll or not cfg.use_dl3:
-        raise NotImplementedError('the port dithers with Knoll plans and '
-                                  'DL3 palettes only')
+    if cfg.use_thomas_knoll:
+        dither_cached = dither.knoll_dither_tiles_cached
+    else:
+        dither_cached = functools.partial(
+            dither.yliluoma_dither_tiles_cached,
+            mixed_colors=cfg.yliluoma_mix)
     n_kf = len(state.keyframes)
     phases = {}
     dev = state.device
@@ -156,7 +170,7 @@ def run_dither(state: EncoderState) -> EncoderState:
                           + dpi_rows)
                 group_pals = state.palettes_rgb[batch.start:batch.stop] \
                     .reshape(-1, cfg.tile_palette_size, 3)
-                buf[idx] = dither.knoll_dither_tiles_cached(
+                buf[idx] = dither_cached(
                     state.device_source_tiles()[idx], group_pals,
                     torch.from_numpy(groups.astype(np.int64)).to(dev))
             if dev.type == 'cuda':

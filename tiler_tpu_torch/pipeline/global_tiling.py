@@ -1,12 +1,14 @@
 """GlobalTiling step: reduce the tileset to a budget with KModes — the
-counterpart of the device path of tiler_tpu/pipeline/global_tiling.py
-(GTS reload and KModes restarts are not ported yet).
+counterpart of the device path of tiler_tpu/pipeline/global_tiling.py.
 
 Per active tile an 80-byte signature (64 palette indices + 16 zone
 flags) is built on the device; tiles are binned by DitheringPalIndex,
 the budget is shared by EqualQualityTileCount, every bin is solved in one
-batched KModes call, and each cluster merges into its winner. Then the
-global MakeUnique and Reindex run.
+batched KModes call (from its min-byte-sum line, or from golden-ratio
+restarts), and each cluster merges into its winner. Then the global
+MakeUnique and Reindex run. With a GTS tileset to reload, each active
+tile is replaced by its nearest line of that tileset instead
+(ReloadPreviousTiling), and only MakeUnique follows.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import time
 import numpy as np
 import torch
 
+from tiler_tpu.bitstream.gtm import read_gts
 from tiler_tpu.constants import KMODES_ZONE_COUNT, equal_quality_tile_count
 
 from ..ops.kmodes import kmodes_batch_gather
@@ -23,16 +26,27 @@ from .state import EncoderState
 from .unique import run_make_unique
 
 
+def _zone_counts(flat: torch.Tensor, palette_size: int) -> torch.Tensor:
+    """[R,16] int32: how many of each row's 64 indices fall in each zone."""
+    zone_of = flat * KMODES_ZONE_COUNT // palette_size
+    zr = torch.arange(KMODES_ZONE_COUNT, device=flat.device)
+    return torch.sum(zone_of[:, :, None] == zr, dim=1, dtype=torch.int32)
+
+
 def tile_signatures(tiles_u8: torch.Tensor, idx: torch.Tensor,
                     palette_size: int):
     """[R,80] uint8 KModes lines of tiles idx, and their byte sums."""
     flat = tiles_u8[idx].reshape(idx.shape[0], 64).to(torch.int32)
-    zone_of = flat * KMODES_ZONE_COUNT // palette_size
-    zr = torch.arange(KMODES_ZONE_COUNT, device=flat.device)
-    acc = torch.sum(zone_of[:, :, None] == zr, dim=1, dtype=torch.int32)
+    acc = _zone_counts(flat, palette_size)
     zones = (acc > palette_size // KMODES_ZONE_COUNT).to(torch.uint8)
     sigs = torch.cat([flat.to(torch.uint8), zones], dim=1)
     return sigs, torch.sum(sigs.to(torch.int64), dim=1)
+
+
+def pal_signi(tiles_u8: torch.Tensor, palette_size: int) -> torch.Tensor:
+    """PalSigni of [R,8,8] tiles: min over zones of (64 - zone count)."""
+    flat = tiles_u8.reshape(tiles_u8.shape[0], 64).to(torch.int32)
+    return torch.min(64 - _zone_counts(flat, palette_size), dim=1).values
 
 
 def compute_global_tiling_fwd_device(state: EncoderState, cfg,
@@ -61,8 +75,10 @@ def compute_global_tiling_fwd_device(state: EncoderState, cfg,
             continue
         s = sums[sel]
         # starting point: the line with the smallest byte sum, last one
-        # on ties (main.pas:4301-4308 uses <=)
-        start = int(np.flatnonzero(s == s.min())[-1])
+        # on ties (main.pas:4301-4308 uses <=); kmodes_restarts > 0 asks
+        # for best-of-N golden-ratio restarts instead (kmodes.pas:949-966)
+        start = (-cfg.kmodes_restarts if cfg.kmodes_restarts > 0
+                 else int(np.flatnonzero(s == s.min())[-1]))
         jobs.append(dict(sel=sel, k=k, start=start))
     phases['sigs_bins'] = round(time.perf_counter() - t0, 3)
     t0 = time.perf_counter()
@@ -105,9 +121,8 @@ def compute_global_tiling_fwd_device(state: EncoderState, cfg,
 
 def run_global_tiling(state: EncoderState) -> EncoderState:
     cfg = state.config
-    if cfg.reload_tileset or cfg.kmodes_restarts > 0:
-        raise NotImplementedError('GTS reload and KModes restarts are not '
-                                  'ported')
+    if cfg.reload_tileset:
+        return run_reload_tiling(state, cfg.reload_tileset)
     raw = state.n_frames * state.tilemap_size
     budget = cfg.max_tiles if cfg.max_tiles > 0 else \
         round(cfg.qb_tiles * equal_quality_tile_count(raw))
@@ -127,4 +142,55 @@ def run_global_tiling(state: EncoderState) -> EncoderState:
     gp['gt_unique'] = round(t1 - t0, 3)
     gp['gt_reindex'] = round(time.perf_counter() - t1, 3)
     gp['unique_reindex'] = round(time.perf_counter() - t0, 3)
+    return state
+
+
+def _match_last(queries: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
+    """Per query signature, the pool line with the smallest Hamming<<11 +
+    L1 dissimilarity, the LAST one on ties (GetMinMatchingDissim uses
+    <=). int32 math in query chunks of at most 2^27 compared bytes."""
+    p = pool.to(torch.int32)[None]
+    out = torch.empty(queries.shape[0], dtype=torch.int64,
+                      device=queries.device)
+    step = max(1, (1 << 27) // max(1, pool.numel()))
+    for lo in range(0, queries.shape[0], step):
+        q = queries[lo:lo + step].to(torch.int32)[:, None, :]
+        d = (torch.sum(q != p, dim=2, dtype=torch.int32) << 11) \
+            + torch.sum(torch.abs(q - p), dim=2, dtype=torch.int32)
+        out[lo:lo + step] = d.shape[1] - 1 - torch.argmin(d.flip(1), dim=1)
+    return out
+
+
+def run_reload_tiling(state: EncoderState, gts_path: str) -> EncoderState:
+    """ReloadPreviousTiling (main.pas:4372-4470): overwrite each active
+    tile's pixels with the nearest line of a previous GTS tileset,
+    matched on signatures within the same PalSigni bin when that bin
+    exists (else against the whole tileset), then MakeUnique."""
+    cfg = state.config
+    dev = state.device
+    gts_tiles, gts_pal_size = read_gts(gts_path)
+    # rescale palette indices to the current palette size
+    # (main.pas:4436-4438)
+    scaled = torch.from_numpy(
+        (gts_tiles.astype(np.int64) * cfg.tile_palette_size
+         // gts_pal_size).astype(np.uint8)).to(dev)
+    ds_sigs, _ = tile_signatures(
+        scaled, torch.arange(scaled.shape[0], device=dev),
+        cfg.tile_palette_size)
+    ds_signi = pal_signi(scaled, cfg.tile_palette_size)
+
+    act = torch.from_numpy(np.flatnonzero(state.tile_active)).to(dev)
+    tiles = state.device_tiles_pal().clone()
+    sigs, _ = tile_signatures(tiles, act, cfg.tile_palette_size)
+    signi = pal_signi(tiles[act], cfg.tile_palette_size)
+    for s in torch.unique(signi).tolist():
+        rows = torch.nonzero(signi == s)[:, 0]
+        cand = torch.nonzero(ds_signi == s)[:, 0]
+        if cand.numel():
+            pool_sigs, pool_tiles = ds_sigs[cand], scaled[cand]
+        else:
+            pool_sigs, pool_tiles = ds_sigs, scaled
+        tiles[act[rows]] = pool_tiles[_match_last(sigs[rows], pool_sigs)]
+    state.set_tiles_pal_device(tiles)
+    run_make_unique(state)
     return state

@@ -1,15 +1,19 @@
 """Smoke run of the PyTorch port on one CUDA card: python3 chip_smoke.py
 
-Phases (each prints one JSON line; any failure raises and exits
-non-zero):
+It imports torch, numpy and tiler_tpu_torch only. Phases (each prints one
+JSON line; any failure raises and exits non-zero):
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. build: both CUDA sources of the 1-NN kernels (tiler_tpu_torch/csrc/
-     nn1.cu with K1 and its augmented mode K2, nn1_bf16.cu with K3) from
-     this checkout, one nvcc each, started together;
+     nn1.cu with K1, its augmented mode K2 and the prepare kernel,
+     nn1_bf16.cu with K3) from this checkout, one nvcc each, started
+     together, and the package's C++ library (g++); ptxas must report no
+     spills;
   3. each kernel vs its plain torch version on the card at the main
      path's shapes (Q=16384 queries, C=262144 candidates, D=192), with
-     the tolerance stated per case, and both timed with CUDA events in
-     turns;
+     the tolerance stated per case; kernel, plain version and the
+     library call that computes the same product timed with CUDA events
+     in turns, also at a keyframe's short last chunks, at one query tile
+     per SM and at C=1,048,576; each kernel's bound from these shapes;
   4. the paths, each with the launch counts set to 0 just before it and
      read just after:
      a. the experiment tools (tiler_tpu_torch.tools.nn_prec_bench and
@@ -20,10 +24,11 @@ non-zero):
         encoded on the card and on the CPU, whose PSNRs must agree;
      c. the slice: Encoder(device='cuda').run_all on the 1080p 16-frame
         cuts_v2 clip at 128 palettes, once untimed and once timed, with
-        K1's launches in the timed run equal to the stage-3 1-NN calls;
+        K1's launches in the timed run equal to the stage-3 1-NN calls
+        and the prepare's equal to the keyframes;
      d. the same clip with Yliluoma + VAR, encoded once;
-  5. decode: both 1080p streams through the shared numpy decoder, each
-     with PSNR >= 29 dB.
+  5. decode: both 1080p streams through the package's numpy decoder,
+     each with PSNR >= 29 dB.
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}; nothing is printed as a
 result without a CUDA card.
@@ -39,7 +44,11 @@ import time
 import numpy as np
 
 Q, C, D = 16384, 262144, 192
+C_BIG = 1 << 20                 # the assign tool's candidates
 Q_SHORT = (2000, 9000, 12000)   # a keyframe's last, short query chunk
+# NVIDIA's data sheet for the H100 SXM at 700 W: device memory bytes/s and
+# dense operations/s, f32 outside the tensor cores and bf16 inside
+PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 PSNR_FLOOR = 29.0
 AGREE_FLOOR = 0.998   # K1/K2 winner agreement: at most 1 in 512 apart
 
@@ -74,25 +83,107 @@ def time_ms(fn, runs: int = 7) -> float:
 
 def build_kernels() -> None:
     """Phase 2: every CUDA source from this checkout, one nvcc each, all
-    started together; prints each library's registers and spills."""
+    started together, and the C++ library; prints each kernel's registers
+    and spills, and fails on any spill."""
+    from tiler_tpu_torch import native
     from tiler_tpu_torch.ops import nn_kernels as nk
     t0 = time.perf_counter()
     libs = nk.build(force=True)
+    t_cuda = time.perf_counter() - t0
+    native.get_lib()
     ptxas = {}
     for name, so in libs.items():
         with open(so.replace('.so', '.ptxas.txt')) as fh:
             ptxas[name] = [ln.strip() for ln in fh
                            if 'registers' in ln or 'spill' in ln]
-    say('build', seconds=time.perf_counter() - t0, libraries=libs,
-        ptxas=ptxas)
+    say('build', seconds=time.perf_counter() - t0, nvcc_seconds=t_cuda,
+        libraries=libs, native=native._SO_PATH, ptxas=ptxas)
+    spilled = [ln for lines in ptxas.values() for ln in lines
+               if 'spill' in ln and '0 bytes spill stores, 0 bytes spill '
+               'loads' not in ln]
+    if spilled:
+        raise AssertionError(f'ptxas spilled: {spilled}')
+
+
+def bound(n_q: int, n_c: int, dim: int, peak_ops: float) -> dict:
+    """The least time the card could take for a 1-NN of n_q queries among
+    n_c candidates of width dim: each input read and each output written
+    once over the memory rate, or 2*Q*C*D operations over peak_ops."""
+    t_bytes = 4.0 * (n_q * dim + n_c * dim + 2 * n_q) / PEAK_BYTES
+    t_ops = 2.0 * n_q * n_c * dim / peak_ops
+    return {'bound_ms': 1e3 * max(t_bytes, t_ops),
+            'bound_by': 'bytes' if t_bytes > t_ops else 'operations'}
+
+
+def gemm_f32(q, c, c_chunk: int = 8192):
+    """K1's and K2's yardstick: the product q @ c.T alone as f32 matmuls
+    (TF32 off) per candidate chunk, without norms or argmin."""
+    for cs in range(0, c.shape[0], c_chunk):
+        q @ c[cs:cs + c_chunk].T
+
+
+def turns(fns: dict, runs: int = 7) -> dict:
+    """Each fn timed twice, in turns (a, b, c, c, b, a); the lower median
+    of each and both readings."""
+    order = list(fns) + list(fns)[::-1]
+    got = {k: [] for k in fns}
+    for k in order:
+        got[k].append(time_ms(fns[k], runs))
+    return {k: {'ms': min(v), 'all': v} for k, v in got.items()}
+
+
+def check_prepare(card: str) -> dict:
+    """Phase 3, the prepare kernel against its plain version: the
+    transposed tiles bit for bit always; the norms bit for bit on integer
+    features (exact sums) and on normal ones but for the plain version's
+    double rounding (at most 2 norms may differ, by one ulp). Timed at
+    C x D; its bound is its bytes. Returns its JSON record."""
+    import torch
+
+    from tiler_tpu_torch.ops import nn_kernels as nk
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(5)
+    worst = 0.0
+    for n, d, ints in ((5013, 3, True), (20000, 100, True), (C, D, True),
+                       (5013, 200, True), (100001, 200, False),
+                       (C, D, False)):       # the last one is timed
+        x = rng.integers(0, 16, (n, d)).astype(np.float32) if ints else \
+            rng.standard_normal((n, d), np.float32)
+        c = torch.from_numpy(x).to(dev)
+        got, want = nk.prepare(c), nk.nn1_prepare_plain(c)
+        torch.cuda.synchronize()
+        if not torch.equal(got.ct[:, :-1], want.ct[:, :-1]):
+            raise AssertionError(f'nn1_prepare {n}x{d}: tiles differ')
+        differ = int((got.ct[:, -1] != want.ct[:, -1]).sum())
+        gap = (got.norms() - want.norms()).abs().max().item()
+        worst = max(worst, gap)
+        if differ > (0 if ints else 2) or \
+                gap > 1e-6 * want.norms().max().item():
+            raise AssertionError(f'nn1_prepare {n}x{d}: {differ} norms '
+                                 f'differ, by up to {gap}')
+        say('nn1_prepare_check', candidates=n, dim=d, integers=ints,
+            tiles='bit-equal', norms_differ=differ)
+    t = turns({'plain': lambda: nk.nn1_prepare_plain(c),
+               'kernel': lambda: nk.prepare(c)})
+    t_bytes = 4.0 * (C * D + C * (D + 1)) / PEAK_BYTES
+    rec = {'name': 'nn1_prepare', 'route': 'cuda',
+           'source': 'tiler_tpu_torch/csrc/nn1.cu',
+           'replaces': 'tiler_tpu/ops/pallas_kernels.py:50',
+           'launches': 0, 'max_abs_err': worst, 'ms': t['kernel']['ms'],
+           'plain_ms': t['plain']['ms'], 'bound_ms': 1e3 * t_bytes,
+           'bound_by': 'bytes', 'library_ms': None}
+    say('nn1_prepare_time', card=card, candidates=C, dim=D, **t)
+    return rec
 
 
 def check_kernel(card: str) -> dict:
     """Phase 3, K1: the checks every kernel gets (check_variant), feature
-    widths that fill no shared-memory slice, and times at a full
-    16384-query chunk and at a keyframe's short last chunks, with the
-    candidate ranges the kernel splits each into. Returns its JSON
-    record (launches filled later)."""
+    widths that fill no slice, and times of kernel, plain version and the
+    bare f32 product in turns at a full 16384-query chunk, at a
+    keyframe's short last chunks (with the candidate ranges the kernel
+    splits each into) and at one query tile per SM, on prepared
+    candidates as the encoder calls it. Returns its JSON record (launches
+    filled later)."""
     import torch
 
     from tiler_tpu_torch.ops import nn_kernels as nk
@@ -102,33 +193,45 @@ def check_kernel(card: str) -> dict:
                replaces='tiler_tpu/ops/pallas_kernels.py:35')
     dev = torch.device('cuda')
     rng = np.random.default_rng(7)
-    for d in (3, 100):
-        _exact('nn1', nk.nearest_1, nk.nearest_1_plain,
-               torch.from_numpy(rng.integers(0, 16, (999, d))
-                                .astype(np.float32)).to(dev),
-               torch.from_numpy(rng.integers(0, 16, (20000, d))
-                                .astype(np.float32)).to(dev), f'width {d}')
-    say('nn1_widths', widths=[3, 100])
+    for kern, plain, name in (
+            (nk.nearest_1, nk.nearest_1_plain, 'nn1'),
+            (lambda q, c: nk.nearest_1(q, nk.prepare(c)),
+             nk.nearest_1_plain, 'nn1 prepared'),
+            (nk.nearest_1_aug, nk.nearest_1_aug_plain, 'nn1_aug')):
+        for d in (3, 100, 192):
+            _exact(name, kern, plain,
+                   torch.from_numpy(rng.integers(0, 16, (999, d))
+                                    .astype(np.float32)).to(dev),
+                   torch.from_numpy(rng.integers(0, 16, (20000, d))
+                                    .astype(np.float32)).to(dev),
+                   f'width {d}')
+    say('nn1_widths', widths=[3, 100, 192], queries=999, candidates=20000,
+        ranges=nk.candidate_ranges(999, 20000, 132)[0])
 
-    qf = torch.from_numpy(rng.standard_normal((Q, D), np.float32)).to(dev)
-    cf = torch.from_numpy(rng.standard_normal((C, D), np.float32)).to(dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    t_plain = time_ms(lambda: nk.nearest_1_plain(qf, cf))
-    t_kern = time_ms(lambda: nk.nearest_1(qf, cf))
-    short = []
-    for n in Q_SHORT:
+    q_sm = nk.full_chunk(dev)
+    qf = torch.from_numpy(rng.standard_normal((max(Q, q_sm), D),
+                                              np.float32)).to(dev)
+    cf = torch.from_numpy(rng.standard_normal((C, D), np.float32)).to(dev)
+    prep = nk.prepare(cf)
+    rows = []
+    for n in (Q,) + Q_SHORT + (q_sm,):
         qs = qf[:n].contiguous()
-        short.append({
-            'queries': n, 'ranges': nk.candidate_ranges(n, C, n_sm)[0],
-            'kernel_ms': time_ms(lambda: nk.nearest_1(qs, cf)),
-            'plain_ms': time_ms(lambda: nk.nearest_1_plain(qs, cf))})
-    t_plain2 = time_ms(lambda: nk.nearest_1_plain(qf, cf))
-    t_kern2 = time_ms(lambda: nk.nearest_1(qf, cf))
-    rec['ms'], rec['plain_ms'] = min(t_kern, t_kern2), min(t_plain, t_plain2)
-    say('nn1_time', card=card, kernel_ms=[t_kern, t_kern2],
-        plain_ms=[t_plain, t_plain2],
+        t = turns({'plain': lambda: nk.nearest_1_plain(qs, cf),
+                   'kernel': lambda: nk.nearest_1(qs, prep),
+                   'library': lambda: gemm_f32(qs, cf)})
+        rows.append({'queries': n,
+                     'ranges': nk.candidate_ranges(n, C, n_sm)[0],
+                     'kernel_ms': t['kernel'], 'plain_ms': t['plain'],
+                     'library_ms': t['library'],
+                     **bound(n, C, D, PEAK_F32)})
+    main = rows[0]
+    rec.update(ms=main['kernel_ms']['ms'], plain_ms=main['plain_ms']['ms'],
+               library_ms=main['library_ms']['ms'],
+               bound_ms=main['bound_ms'], bound_by=main['bound_by'])
+    say('nn1_time', card=card, candidates=C, dim=D,
         kernel_tflops=2.0 * Q * C * D / (rec['ms'] * 1e-3) / 1e12,
-        ranges=nk.candidate_ranges(Q, C, n_sm)[0], short=short)
+        share_of_bound=rec['bound_ms'] / rec['ms'], rows=rows)
     return rec
 
 
@@ -228,19 +331,23 @@ def check_variant(name: str, kern, plain, ints: tuple, normal_std: float,
             'max_abs_err': max_abs}
 
 
-def time_in_turns(kern, plain, q, c) -> tuple:
-    """(kernel ms, plain ms, both lists): plain, kernel, kernel, plain."""
-    t = [time_ms(lambda: plain(q, c)), time_ms(lambda: kern(q, c)),
-         time_ms(lambda: kern(q, c)), time_ms(lambda: plain(q, c))]
-    return min(t[1], t[2]), min(t[0], t[3]), [t[1], t[2]], [t[0], t[3]]
+def gemm_bf16(q, c, c_chunk: int = 8192):
+    """K3's yardstick: the product of operands already rounded to bf16,
+    per candidate chunk, as torch.mm with an f32 result, without norms or
+    argmin. It raises where torch.mm takes no out_dtype, so that
+    library_ms always times this one call."""
+    import torch
+    for cs in range(0, c.shape[0], c_chunk):
+        torch.mm(q, c[cs:cs + c_chunk].T, out_dtype=torch.float32)
 
 
 def check_variants(card: str) -> list:
-    """Phase 3, K2 and K3: checks, then each timed against its plain
-    version at Q x C x D in turns; K2 and K1 also held against their
+    """Phase 3, K2 and K3: checks, then kernel, plain version and library
+    call timed at Q x C x D in turns; K2 and K1 also held against their
     plain versions (err within rtol/atol, winners apart only at near
-    ties) and timed at the assign tool's 1,048,576 candidates. Returns
-    their JSON records."""
+    ties) and timed at the assign tool's 1,048,576 candidates. K2's
+    library call is its plain version (one matmul and an argmin per
+    chunk). Returns their JSON records."""
     import torch
 
     from tiler_tpu_torch.ops import nn_kernels as nk
@@ -258,28 +365,43 @@ def check_variants(card: str) -> list:
     dev = torch.device('cuda')
     qf = torch.from_numpy(rng.standard_normal((Q, D), np.float32)).to(dev)
     cf = torch.from_numpy(rng.standard_normal((C, D), np.float32)).to(dev)
-    for rec, kern, plain in ((aug, nk.nearest_1_aug, nk.nearest_1_aug_plain),
-                             (bf16, nk.nearest_1_bf16,
-                              nk.nearest_1_bf16_plain)):
-        rec['ms'], rec['plain_ms'], k_all, p_all = time_in_turns(
-            kern, plain, qf, cf)
-        say(f'{rec["name"]}_time', card=card, queries=Q, candidates=C,
-            kernel_ms=k_all, plain_ms=p_all,
-            kernel_tflops=2.0 * Q * C * D / (rec['ms'] * 1e-3) / 1e12)
-    c_big = torch.from_numpy(rng.standard_normal((1 << 20, D), np.float32)
+    qb, cb = qf.to(torch.bfloat16), cf.to(torch.bfloat16)
+    t = turns({'plain': lambda: nk.nearest_1_aug_plain(qf, cf),
+               'kernel': lambda: nk.nearest_1_aug(qf, cf)})
+    aug.update(ms=t['kernel']['ms'], plain_ms=t['plain']['ms'],
+               library_ms=t['plain']['ms'],
+               **bound(Q, C, D + 8, PEAK_F32))
+    say('nn1_aug_time', card=card, queries=Q, candidates=C, **t,
+        kernel_tflops=2.0 * Q * C * (D + 8) / (aug['ms'] * 1e-3) / 1e12,
+        share_of_bound=aug['bound_ms'] / aug['ms'])
+    t = turns({'plain': lambda: nk.nearest_1_bf16_plain(qf, cf),
+               'kernel': lambda: nk.nearest_1_bf16(qf, cf),
+               'library': lambda: gemm_bf16(qb, cb)})
+    bf16.update(ms=t['kernel']['ms'], plain_ms=t['plain']['ms'],
+                library_ms=t['library']['ms'], **bound(Q, C, D, PEAK_BF16))
+    say('nn1_bf16_time', card=card, queries=Q, candidates=C, **t,
+        library_call='torch.mm out_dtype=float32',
+        kernel_tflops=2.0 * Q * C * D / (bf16['ms'] * 1e-3) / 1e12,
+        share_of_bound=bf16['bound_ms'] / bf16['ms'])
+
+    c_big = torch.from_numpy(rng.standard_normal((C_BIG, D), np.float32)
                              ).to(dev)
     big = {}
-    for name, kern, plain, tol in (
+    for name, kern, plain, tol, width, lib in (
             ('nn1_aug', nk.nearest_1_aug, nk.nearest_1_aug_plain,
-             (1e-4, 1e-2)),
-            ('nn1', nk.nearest_1, nk.nearest_1_plain, (1e-5, 1e-4))):
+             (1e-4, 1e-2), D + 8, None),
+            ('nn1', nk.nearest_1, nk.nearest_1_plain, (1e-5, 1e-4), D,
+             gemm_f32)):
         ki, ke, pi, pe = _both(kern, plain, qf, c_big)
         torch.testing.assert_close(ke, pe, rtol=tol[0], atol=tol[1])
+        fns = {'plain': lambda: plain(qf, c_big),
+               'kernel': lambda: kern(qf, c_big)}
+        if lib is not None:
+            fns['library'] = lambda: lib(qf, c_big)
         big[name] = {'idx_differ': _near_ties_only(qf, c_big, ki, pi, _l2_64),
-                     'max_abs_err': float((ke - pe).abs().max())}
-        big[name]['ms'], big[name]['plain_ms'], _, _ = time_in_turns(
-            kern, plain, qf, c_big)
-    say('nn1_aug_1m', card=card, queries=Q, candidates=1 << 20, **big)
+                     'max_abs_err': float((ke - pe).abs().max()),
+                     **turns(fns), **bound(Q, C_BIG, width, PEAK_F32)}
+    say('nn1_1m', card=card, queries=Q, candidates=C_BIG, **big)
     return [aug, bf16]
 
 
@@ -290,11 +412,11 @@ def run_tools() -> dict:
     K1/K2 and float64 winner agreements at least AGREE_FLOOR."""
     from tiler_tpu_torch.ops import nn_kernels as nk
     from tiler_tpu_torch.tools import assign_opt_bench, nn_prec_bench
-    nk.LAUNCHES = nk.LAUNCHES_AUG = nk.LAUNCHES_BF16 = 0
+    nk.LAUNCHES = nk.LAUNCHES_PREP = nk.LAUNCHES_AUG = nk.LAUNCHES_BF16 = 0
     prec = nn_prec_bench.main([])
     aob = assign_opt_bench.main([])
-    counts = {'nn1': nk.LAUNCHES, 'nn1_aug': nk.LAUNCHES_AUG,
-              'nn1_bf16': nk.LAUNCHES_BF16}
+    counts = {'nn1': nk.LAUNCHES, 'nn1_prepare': nk.LAUNCHES_PREP,
+              'nn1_aug': nk.LAUNCHES_AUG, 'nn1_bf16': nk.LAUNCHES_BF16}
     say('tools', nn_prec_bench=prec, assign_opt_bench=aob, launches=counts)
     if min(counts.values()) <= 0:
         raise AssertionError(f'a kernel of the tools path never launched: '
@@ -311,16 +433,16 @@ def run_tools() -> dict:
 
 
 def encode_counted(frames, cfg, phase: str, card: str, **extra):
-    """Encode on the card with K1's launch count set to 0 just before and
-    read just after; it must equal the stage-3 1-NN calls. Prints the
-    run's times, sizes and counts as `phase`. Returns (encoder, stream,
-    launches)."""
+    """Encode on the card with the launch counts of K1 and of the prepare
+    kernel set to 0 just before and read just after; they must equal the
+    stage-3 1-NN calls and the keyframes. Prints the run's times, sizes
+    and counts as `phase`. Returns (encoder, stream, {kernel: launches})."""
     import torch
 
     from tiler_tpu_torch.ops import nn_kernels as nk
-    nk.LAUNCHES = 0
+    nk.LAUNCHES = nk.LAUNCHES_PREP = 0
     enc, blob, wall = encode(frames, cfg, 'cuda')
-    launches = nk.LAUNCHES
+    launches, prepares = nk.LAUNCHES, nk.LAUNCHES_PREP
     m = enc.state.metrics
     say(phase, card=card, wall_s=wall, fps=len(frames) / wall,
         step_times=enc.state.step_times, ft_phases=m['ft_phases'],
@@ -330,11 +452,14 @@ def encode_counted(frames, cfg, phase: str, card: str, **extra):
         ft_knn_sizes=m['ft_knn_sizes'], ft_pair_dedup=m['ft_pair_dedup'],
         ft_nn_calls=m['ft_nn_calls'],
         max_memory_allocated=torch.cuda.max_memory_allocated(),
-        launches=launches, **extra)
+        launches=launches, prepare_launches=prepares, **extra)
     if launches <= 0 or launches != m['ft_nn_calls']:
         raise AssertionError(f'{phase}: kernel launches {launches} != '
                              f'stage-3 1-NN calls {m["ft_nn_calls"]}')
-    return enc, blob, launches
+    if prepares != m['n_keyframes']:
+        raise AssertionError(f'{phase}: {prepares} prepare launches for '
+                             f'{m["n_keyframes"]} keyframes')
+    return enc, blob, {'nn1': launches, 'nn1_prepare': prepares}
 
 
 def check_configs() -> None:
@@ -344,12 +469,12 @@ def check_configs() -> None:
     + VAR encode wrote."""
     import tempfile
 
-    from bench import synthetic_clip_v2
-    from tiler_tpu.bitstream.gtm import write_gts
-    from tiler_tpu.config import EncoderConfig
-    from tiler_tpu.decode import decode_video
+    from tiler_tpu_torch.bitstream.gtm import write_gts
+    from tiler_tpu_torch.config import EncoderConfig
+    from tiler_tpu_torch.decode import decode_video
     from tiler_tpu_torch.ops import nn_kernels as nk
     from tiler_tpu_torch.ops.stats import psnr
+    from tiler_tpu_torch.tools.common import synthetic_clip_v2
     small = synthetic_clip_v2(8, 120, 160)
     base = EncoderConfig(palette_count=16, max_tiles=400)
     with tempfile.TemporaryDirectory() as tmp:
@@ -363,9 +488,9 @@ def check_configs() -> None:
             'no_wavelets': dataclasses.replace(base, use_wavelets=False),
             'reload_gts': dataclasses.replace(base, reload_tileset=gts)}
         for name, cfg in cases.items():
-            nk.LAUNCHES = 0
+            nk.LAUNCHES = nk.LAUNCHES_PREP = 0
             enc, blob_g, _ = encode(small, cfg, 'cuda')
-            launches = nk.LAUNCHES
+            launches, prepares = nk.LAUNCHES, nk.LAUNCHES_PREP
             if name == 'yliluoma_var':
                 n = int(enc.state.tile_active.sum())
                 write_gts(gts, enc.state.tiles_pal[:n],
@@ -375,13 +500,15 @@ def check_configs() -> None:
             p_c = psnr(decode_video(blob_c)[0], small)
             say(f'small_clip_{name}', psnr_cuda=p_g, psnr_cpu=p_c,
                 bytes_cuda=len(blob_g), bytes_cpu=len(blob_c),
-                same_stream=blob_g == blob_c, launches=launches)
+                same_stream=blob_g == blob_c, launches=launches,
+                prepare_launches=prepares)
             if abs(p_g - p_c) > 0.05:
                 raise AssertionError(f'small clip {name}: cuda {p_g} vs '
                                      f'cpu {p_c} dB')
-            if launches != enc.state.metrics['ft_nn_calls']:
-                raise AssertionError(f'small clip {name}: {launches} K1 '
-                                     'launches')
+            if launches != enc.state.metrics['ft_nn_calls'] or \
+                    prepares != enc.state.metrics['n_keyframes']:
+                raise AssertionError(f'small clip {name}: {launches} K1 and '
+                                     f'{prepares} prepare launches')
 
 
 def encode(frames, cfg, device):
@@ -399,10 +526,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import tiler_tpu_torch  # noqa: F401  (sets the TF32 switches)
-    from bench import synthetic_clip_v2
-    from tiler_tpu.config import EncoderConfig
-    from tiler_tpu.decode import decode_video
+    from tiler_tpu_torch.config import EncoderConfig
+    from tiler_tpu_torch.decode import decode_video
     from tiler_tpu_torch.ops.stats import psnr
+    from tiler_tpu_torch.tools.common import synthetic_clip_v2
 
     card = card_line()
     say('env', python=sys.version.split()[0], torch=torch.__version__,
@@ -411,6 +538,7 @@ def main() -> int:
               torch.backends.cudnn.allow_tf32])
 
     build_kernels()
+    prep = check_prepare(card)
     record = check_kernel(card)
     variants = check_variants(card)
 
@@ -423,8 +551,9 @@ def main() -> int:
     cfg = EncoderConfig(palette_count=128, tile_palette_size=16)
     _, _, warm_s = encode(frames, cfg, 'cuda')
     torch.cuda.reset_peak_memory_stats()
-    _, blob, record['launches'] = encode_counted(frames, cfg, 'slice', card,
-                                                 warm_s=warm_s)
+    _, blob, counts = encode_counted(frames, cfg, 'slice', card,
+                                     warm_s=warm_s)
+    record['launches'], prep['launches'] = counts['nn1'], counts['nn1_prepare']
     decoded, stream = decode_video(blob)
     if decoded.shape != frames.shape:
         raise AssertionError(f'decoded {decoded.shape} != {frames.shape}')
@@ -442,7 +571,7 @@ def main() -> int:
     if decoded.shape != frames.shape or not p >= PSNR_FLOOR:
         raise AssertionError(f'Yliluoma + VAR: {decoded.shape}, {p} dB')
 
-    print(json.dumps({'kernels': [record] + variants}))
+    print(json.dumps({'kernels': [record, prep] + variants}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -18,8 +18,10 @@ from tiler_tpu.pipeline import global_tiling as jgt
 from tiler_tpu.pipeline.encoder import Encoder as JaxEncoder
 from tiler_tpu_torch.ops import kmodes
 from tiler_tpu_torch.pipeline import global_tiling
-from tiler_tpu_torch.pipeline.state import (from_reference_state,
-                                            to_reference_state)
+from tiler_tpu.pipeline.state import EncoderState as JaxState
+from tiler_tpu_torch.pipeline.state import (ARRAY_FIELDS,
+                                            from_reference_state,
+                                            state_arrays)
 
 BASE = EncoderConfig(palette_count=16, max_tiles=400)
 FIELDS = ['tiles_pal', 'tiles_rgb', 'tm_tile', 'tile_use', 'tile_active',
@@ -74,14 +76,24 @@ def test_global_tiling_parity(states, case, tmp_path, monkeypatch):
     port = from_reference_state(st, 'cpu')
     port.config = cfg
     # the JAX package's step runs on its own copy of the same arrays
-    want = to_reference_state(from_reference_state(st, 'cpu'))
-    want.config = cfg
+    want = _jax_state(state_arrays(from_reference_state(st, 'cpu')), cfg)
     jgt.run_global_tiling(want)
     global_tiling.run_global_tiling(port)
     _same(port, want, FIELDS)
     if case != 'reload':
         assert port.metrics['global_tiling_merged'] == \
             want.metrics['global_tiling_merged'] > 0
+
+
+def _jax_state(arrays: dict, cfg) -> JaxState:
+    """The JAX package's EncoderState from the port's plain dict."""
+    ref = JaxState(config=cfg, fps=arrays['fps'],
+                   tilemap_w=arrays['tilemap_w'],
+                   tilemap_h=arrays['tilemap_h'])
+    for f in ARRAY_FIELDS + ['changed_mask']:
+        setattr(ref, f, arrays[f])
+    ref.step_times, ref.metrics = arrays['step_times'], arrays['metrics']
+    return ref
 
 
 def _broadcast_only(monkeypatch) -> list:

@@ -79,15 +79,17 @@ def test_cli_refuses_missing_cuda(tmp_path):
 
 @pytest.mark.parametrize('clip', ['noise', 'constant'])
 def test_port_runs_without_jax(clip):
-    """The port encodes with jax unimportable; the constant clip (one
+    """The port encodes with jax, the JAX package and its benchmark
+    script unimportable; the constant clip (one
     distinct tile, fewer candidates than the 8-NN asks for) is one the
     JAX package cannot encode."""
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys\n"
+        "for m in ('jax', 'tiler_tpu', 'bench'): sys.modules[m] = None\n"
         "import numpy as np, tiler_tpu_torch\n"
         "from tiler_tpu_torch.pipeline.encoder import Encoder\n"
-        "from tiler_tpu.config import EncoderConfig\n"
-        "from tiler_tpu.decode import decode_video\n"
+        "from tiler_tpu_torch.config import EncoderConfig\n"
+        "from tiler_tpu_torch.decode import decode_video\n"
         "rng = np.random.default_rng(0)\n"
         "fr = rng.integers(0, 255, (3, 32, 48, 3)).astype(np.uint8)\n"
         "fr[1:, 16:] = fr[0, 16:]\n"
@@ -96,7 +98,7 @@ def test_port_runs_without_jax(clip):
         "device='cpu')\n"
         "blob = enc.run_all(fr, fps=24, fast_lzma=True)\n"
         "assert decode_video(blob)[0].shape == fr.shape\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') "
+        "assert not any(m.split('.')[0] in ('jax', 'tiler_tpu', 'bench') "
         "for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok', len(blob))\n")
     out = _run(['-c', code])

@@ -98,14 +98,72 @@ def test_ragged_sizes_and_chunking(rng):
 
 def test_candidate_ranges_cover_every_tile():
     """The kernel's split of the candidate tiles into ranges: the ranges
-    cover every 128-row tile and none is empty; a full query chunk keeps
-    one range, a short one spreads over the SMs."""
-    for n_q, n_c in itertools.product((1, 128, 129, 2000, 9000, 16384),
-                                      (1, 129, 5013, 262144, 1500000)):
+    cover every 256-row tile once and none is empty; a full query chunk
+    (one 128-query tile for each of the 132 SMs, or the 16384 of the TPU
+    kernel) keeps one range, a short one spreads over the SMs."""
+    assert (nk._BQ, nk._BC) == (128, 256)
+    for n_q, n_c in itertools.product(
+            (1, 128, 129, 2000, 9000, 16384, 16896),
+            (1, 129, 257, 5013, 262144, 1500000)):
         n, per = nk.candidate_ranges(n_q, n_c, 132)
-        assert (n - 1) * per < -(-n_c // 128) <= n * per
-    assert nk.candidate_ranges(16384, 1500000, 132)[0] == 1
+        assert n >= 1 and per >= 1
+        assert (n - 1) * per < -(-n_c // 256) <= n * per
+    for full in (16384, 16896):
+        assert nk.candidate_ranges(full, 1500000, 132)[0] == 1
+        assert nk.candidate_ranges(full, 262144, 132) == (1, 1024)
     assert nk.candidate_ranges(2000, 1500000, 132)[0] == 8
+    assert nk.candidate_ranges(9000, 262144, 132)[0] == 9
+    assert nk.candidate_ranges(12000, 262144, 132)[0] == 7
+    assert nk.full_chunk('cpu') == 16384
+
+
+@pytest.mark.parametrize('dim', [3, 100, 192, 200])
+@pytest.mark.parametrize('n_c', [1, 255, 1013])
+def test_prepare_plain_layout_padding_and_norms(rng, dim, n_c):
+    """The plain form of the prepare kernel: per 256-candidate tile the
+    candidates k-major with the width padded to 8, zeros in the padding,
+    and a last row of norms with +inf in the padding; the norms' summation
+    order keeps integer features exact and normal ones within one f32
+    rounding per step of the float64 norm."""
+    for kind in ('int', 'normal'):
+        c = rng.integers(0, 16, (n_c, dim)).astype(np.float32) \
+            if kind == 'int' else \
+            rng.normal(0, 1, (n_c, dim)).astype(np.float32)
+        p = nk.prepare(torch.from_numpy(c))
+        assert isinstance(p, nk.Prepared) and (p.n_c, p.dim) == (n_c, dim)
+        d_pad, tiles = -(-dim // 8) * 8, -(-n_c // 256)
+        assert p.ct.shape == (tiles, d_pad + 1, 256)
+        assert p.ct.dtype == torch.float32 and p.ct.is_contiguous()
+        # tile by tile: [k, column] features, then the row of norms
+        flat = p.ct.numpy().transpose(1, 0, 2).reshape(d_pad + 1, -1)
+        ct, c2 = flat[:d_pad], flat[d_pad]
+        np.testing.assert_array_equal(ct[:dim, :n_c], c.T)
+        assert not ct[dim:].any() and not ct[:, n_c:].any()
+        assert np.isposinf(c2[n_c:]).all()
+        np.testing.assert_array_equal(p.norms().numpy(), c2[:n_c])
+        want = (c.astype(np.float64) ** 2).sum(1)
+        if kind == 'int':
+            np.testing.assert_array_equal(c2[:n_c], want.astype(np.float32))
+        else:
+            np.testing.assert_allclose(c2[:n_c], want, rtol=2e-6)
+        np.testing.assert_array_equal(p.rows().numpy(), c)
+
+
+@pytest.mark.parametrize('dim', [3, 100, 192, 200])
+def test_prepared_form_equals_raw_form(rng, dim):
+    """nearest_1(q, prepare(c)) is nearest_1(q, c), for nearest_1 and on
+    reuse of one prepared set by several query chunks."""
+    c = rng.normal(0, 1, (1013, dim)).astype(np.float32)
+    q = rng.normal(0, 1, (300, dim)).astype(np.float32)
+    c[1000:1013] = c[3:16]
+    q[:13] = c[3:16]
+    qt, prep = torch.from_numpy(q), nk.prepare(torch.from_numpy(c))
+    idx_p, err_p = _port(q, c)
+    for lo, hi in ((0, 300), (0, 37), (37, 300)):
+        idx, err = nk.nearest_1(qt[lo:hi].contiguous(), prep)
+        np.testing.assert_array_equal(idx.numpy(), idx_p[lo:hi])
+        np.testing.assert_array_equal(err.numpy(), err_p[lo:hi])
+    np.testing.assert_array_equal(idx_p[:13], np.arange(3, 16))
 
 
 def test_wrapper_checks_and_cpu_path_does_not_count():
@@ -122,6 +180,16 @@ def test_wrapper_checks_and_cpu_path_does_not_count():
         nk.nearest_1(q, torch.ones((8, 384))[:, ::2])
     with pytest.raises(ValueError):
         nk.nearest_1(q, torch.ones((0, 192)))
+    before = (nk.LAUNCHES, nk.LAUNCHES_PREP)
+    prep = nk.prepare(c)
+    nk.nearest_1(q, prep)
+    assert (nk.LAUNCHES, nk.LAUNCHES_PREP) == before
+    with pytest.raises(ValueError):
+        nk.nearest_1(torch.zeros((4, 64)), prep)
+    with pytest.raises(ValueError):
+        nk.nearest_1(q, nk.Prepared(prep.ct[:, :-1], 8, 192))
+    with pytest.raises(ValueError):
+        nk.prepare(torch.ones((8, 300)))
 
 
 def test_module_imports_without_nvcc_or_build():

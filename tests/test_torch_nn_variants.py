@@ -128,6 +128,37 @@ def test_augment_equals_jax(rng):
     np.testing.assert_array_equal(got[1][:, :192], -2.0 * c)
 
 
+def test_augmented_candidates_prepare_without_padding_to_32(rng):
+    """K2's candidates go through the same prepare as K1's: the 200
+    augmented columns stay 200 rows a tile (8 is the granule, not the
+    32-wide slice), and they come back unchanged."""
+    q = rng.normal(0, 3, (5, 192)).astype(np.float32)
+    c = rng.normal(0, 3, (300, 192)).astype(np.float32)
+    _, ca, _ = nk.augment(torch.from_numpy(q), torch.from_numpy(c))
+    prep = nk.prepare(ca)
+    assert prep.ct.shape == (2, 201, 256) and (prep.n_c, prep.dim) == (300, 200)
+    np.testing.assert_array_equal(prep.rows().numpy(), ca.numpy())
+    assert not prep.ct[1, :200, 300 - 256:].any()
+
+
+def test_build_writes_library_and_ptxas_report(tmp_path):
+    """nvcc_build compiles for sm_90a by way of a temporary file and
+    writes the ptxas report beside the library, where a run reads the
+    kernels' registers and spills."""
+    nvcc = tmp_path / 'nvcc'
+    nvcc.write_text('#!/bin/sh\nfor a in "$@"; do case "$prev" in -o) '
+                    'out="$a" ;; esac; prev="$a"; done\n'
+                    'echo "$@" > "$out"\necho "Used 8 registers" >&2\n')
+    nvcc.chmod(0o755)
+    out = tmp_path / 'lib' / 'libv.so'
+    nk.nvcc_build(str(nvcc), nk.SOURCES['nn1'], str(out))
+    args = out.read_text()
+    assert 'sm_90a' in args and '-Xptxas -v' in args and ' -D' not in args
+    assert 'registers' in (tmp_path / 'lib' / 'libv.ptxas.txt').read_text()
+    assert sorted(os.listdir(tmp_path / 'lib')) == ['libv.ptxas.txt',
+                                                    'libv.so']
+
+
 def test_bf16_round_is_round_to_nearest_even():
     """bf16 keeps 8 significant bits: 1 + 2^-8 is a tie and rounds to
     even (1.0); 1 + 3*2^-8 rounds up; 1 + 2^-8 + 2^-20 rounds up."""
@@ -143,10 +174,12 @@ def test_wrapper_checks_and_cpu_path_does_not_count(fn):
     wrapper = getattr(nk, fn)
     q = torch.zeros((4, 192))
     c = torch.ones((8, 192))
-    before = (nk.LAUNCHES, nk.LAUNCHES_AUG, nk.LAUNCHES_BF16)
+    before = (nk.LAUNCHES, nk.LAUNCHES_PREP, nk.LAUNCHES_AUG,
+              nk.LAUNCHES_BF16)
     idx, err = wrapper(q, c)
     assert idx.shape == (4,) and err.shape == (4,)
-    assert (nk.LAUNCHES, nk.LAUNCHES_AUG, nk.LAUNCHES_BF16) == before
+    assert (nk.LAUNCHES, nk.LAUNCHES_PREP, nk.LAUNCHES_AUG,
+            nk.LAUNCHES_BF16) == before
     with pytest.raises(TypeError):
         wrapper(q.double(), c.double())
     with pytest.raises(ValueError):

@@ -1,0 +1,283 @@
+"""The port stands alone: tiler_tpu_torch imports nothing of the JAX
+package tiler_tpu, of its benchmark script or of jax, and every module it
+keeps as its own copy gives, on the same numpy inputs made from a seed,
+byte-for-byte what the original gives."""
+import dataclasses
+import inspect
+import json
+import os
+import re
+import subprocess
+import sys
+import types
+
+import numpy as np
+import pytest
+
+import bench
+import tiler_tpu.config as jconfig
+import tiler_tpu.constants as jconstants
+import tiler_tpu.decode as jdecode
+import tiler_tpu.native as jnative
+from tiler_tpu.bitstream import gtm as jgtm
+from tiler_tpu.pipeline.reindex import compute_reindex as jcompute_reindex
+from tiler_tpu.utils import progress as jprogress
+from tiler_tpu.utils.checkpoint import _ARRAY_FIELDS
+import tiler_tpu_torch.config as pconfig
+import tiler_tpu_torch.constants as pconstants
+import tiler_tpu_torch.decode as pdecode
+import tiler_tpu_torch.native as pnative
+from tiler_tpu_torch.bitstream import gtm as pgtm
+from tiler_tpu_torch.pipeline.reindex import compute_reindex
+from tiler_tpu_torch.pipeline.state import ARRAY_FIELDS
+from tiler_tpu_torch.tools.common import synthetic_clip_v2
+from tiler_tpu_torch.utils import progress as pprogress
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ('jax', 'tiler_tpu', 'bench')
+_BLOCK = ("import sys\n"
+          f"for m in {BLOCKED!r}: sys.modules[m] = None\n")
+_NONE_LOADED = (
+    f"assert not any(m.split('.')[0] in {BLOCKED!r} "
+    "for m in sys.modules if sys.modules[m] is not None)\n")
+
+
+def _run(code):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, '-c', code], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=600)
+
+
+# -- (a) the port with the JAX package unimportable -------------------------
+
+def test_every_module_imports_with_jax_package_blocked():
+    code = _BLOCK + (
+        "import importlib, pkgutil, tiler_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "tiler_tpu_torch.__path__, 'tiler_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    if not n.endswith('__main__'): importlib.import_module(n)\n"
+        + _NONE_LOADED +
+        "print(len(names))\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 30
+
+
+def test_cli_encodes_and_decodes_with_jax_package_blocked(tmp_path):
+    clip = tmp_path / 'clip.npy'
+    np.save(clip, synthetic_clip_v2(4, 64, 96, seed=1))
+    gtm, dec = str(tmp_path / 'o.gtm'), str(tmp_path / 'd.npy')
+    code = _BLOCK + (
+        "import runpy\n"
+        "def cli(*argv):\n"
+        "    sys.argv = ['tiler_tpu_torch', *argv]\n"
+        "    try:\n"
+        "        runpy.run_module('tiler_tpu_torch', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert not e.code, e.code\n"
+        f"cli('encode', {str(clip)!r}, {gtm!r}, '--device', 'cpu', "
+        "'--palette-count', '8', '--max-tiles', '100', '--fast-lzma')\n"
+        f"cli('decode', {gtm!r}, {dec!r})\n"
+        + _NONE_LOADED)
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith('{')]
+    assert json.loads(lines[0])['psnr'] > 15
+    assert json.loads(lines[1])['frames'] == 4
+    assert np.load(dec).shape == (4, 64, 96, 3)
+
+
+# -- (b) the sources ---------------------------------------------------------
+
+def test_no_source_imports_the_jax_package():
+    pat = re.compile(r'^\s*(from|import)\s+(tiler_tpu(\.|\s|$)|bench\b|jax\b)',
+                     re.M)
+    paths = [os.path.join(REPO, 'chip_smoke.py')]
+    for root, _, files in os.walk(os.path.join(REPO, 'tiler_tpu_torch')):
+        paths += [os.path.join(root, f) for f in files if f.endswith('.py')]
+    assert len(paths) > 30
+    bad = [p for p in paths if pat.search(open(p).read())]
+    assert not bad, bad
+
+
+def test_native_library_builds_outside_both_packages():
+    assert pnative.available()
+    so = os.path.realpath(pnative._SO_PATH)
+    assert so.startswith(os.path.join(REPO, 'build', 'tiler_tpu_torch') + os.sep)
+    assert so != os.path.realpath(jnative._SO_PATH)
+    assert issubclass(pnative.NoToolchainError, RuntimeError)
+
+
+# -- (c) each copy against its original --------------------------------------
+
+def _public(mod):
+    return {k: v for k, v in vars(mod).items()
+            if not k.startswith('_') and not isinstance(v, types.ModuleType)
+            and k != 'annotations'}
+
+
+def test_constants_are_the_originals():
+    mine, theirs = _public(pconstants), _public(jconstants)
+    assert set(mine) == set(theirs)
+    n_arrays = 0
+    for k, want in theirs.items():
+        got = mine[k]
+        if isinstance(want, np.ndarray):
+            n_arrays += 1
+            assert got.dtype == want.dtype and got.shape == want.shape, k
+            assert got.tobytes() == want.tobytes(), k
+        elif callable(want):
+            assert inspect.getsource(got) == inspect.getsource(want), k
+        else:
+            assert type(got) is type(want) and got == want, k
+    assert n_arrays >= 4
+    for n, size in ((1, 16), (7, 16), (128, 64)):
+        assert pconstants.palette_pattern(n, size).tobytes() == \
+            jconstants.palette_pattern(n, size).tobytes()
+    assert pconstants.equal_quality_tile_count(1e6) == \
+        jconstants.equal_quality_tile_count(1e6)
+
+
+def test_config_defaults_and_fields_are_the_originals():
+    mine = dataclasses.fields(pconfig.EncoderConfig)
+    theirs = dataclasses.fields(jconfig.EncoderConfig)
+    assert [f.name for f in mine] == [f.name for f in theirs]
+    assert dataclasses.asdict(pconfig.EncoderConfig()) == \
+        dataclasses.asdict(jconfig.EncoderConfig())
+    assert {m.name: int(m) for m in pconfig.FTQuality} == \
+        {m.name: int(m) for m in jconfig.FTQuality}
+    for bad in (dict(palette_count=0), dict(tile_palette_size=1),
+                dict(start_step='x'), dict(lzma_mode='x')):
+        for cls in (pconfig.EncoderConfig, jconfig.EncoderConfig):
+            with pytest.raises(ValueError):
+                cls(**bad)
+
+
+def _stream_inputs(seed=0, f=5, th=4, tw=6, n_tiles=40, pal=16, n_pal=8):
+    rng = np.random.default_rng(seed)
+    cells = th * tw
+    return dict(
+        tiles=rng.integers(0, pal, (n_tiles, 8, 8)).astype(np.uint8),
+        palettes=rng.integers(0, 256, (2, n_pal, pal, 3)).astype(np.uint8),
+        frames=[dict(tile_idx=rng.integers(0, n_tiles, cells).astype(np.int32),
+                     pal_idx=rng.integers(0, n_pal, cells).astype(np.int32),
+                     hmir=rng.random(cells) < 0.5,
+                     vmir=rng.random(cells) < 0.5,
+                     smoothed=(rng.random(cells) < 0.4) & (i not in (0, 3)))
+                for i in range(f)],
+        th=th, tw=tw, pal=pal)
+
+
+def _write(mod, x, **kw):
+    w = mod.GTMWriter(width=x['tw'] * 8, height=x['th'] * 8, fps=24.0,
+                      tiles_pal=x['tiles'], palette_size=x['pal'],
+                      frame_count=len(x['frames']), kf_count=2, **kw)
+    w.add_keyframe(0, 0, 2, x['palettes'][0], x['frames'][:3])
+    w.add_keyframe(1, 3, 4, x['palettes'][1], x['frames'][3:])
+    return w.tobytes()
+
+
+@pytest.mark.parametrize('kw', [dict(fast_lzma=True, lzma_mode='auto'),
+                                dict(fast_lzma=False, lzma_mode='lc8'),
+                                dict(fast_lzma=False, lzma_mode='lc3')])
+def test_gtm_writer_bytes_and_decoded_frames(kw):
+    x = _stream_inputs()
+    blob = _write(pgtm, x, **kw)
+    assert blob == _write(jgtm, x, **kw)
+    got, stream = pdecode.decode_video(blob)
+    want, jstream = jdecode.decode_video(blob)
+    assert got.shape == (5, 32, 48, 3) and got.tobytes() == want.tobytes()
+    assert stream.tiles.tobytes() == jstream.tiles.tobytes()
+    parsed, jparsed = pgtm.parse_gtm(blob), jgtm.parse_gtm(blob)
+    assert parsed.commands == jparsed.commands
+    assert dataclasses.asdict(parsed.header) == \
+        dataclasses.asdict(jparsed.header)
+    # the Python walk (the parser's oracle) draws the same frames
+    py = pdecode.interpret_commands_py(parsed)
+    for a, b in zip(py.frames, stream.frames):
+        assert np.array_equal(a.positions, b.positions)
+        assert np.array_equal(a.tile_idx, b.tile_idx)
+
+
+def test_gts_bytes_and_read_back(tmp_path):
+    x = _stream_inputs(seed=2)
+    mine, theirs = str(tmp_path / 'a.gts'), str(tmp_path / 'b.gts')
+    pgtm.write_gts(mine, x['tiles'], x['pal'])
+    jgtm.write_gts(theirs, x['tiles'], x['pal'])
+    assert open(mine, 'rb').read() == open(theirs, 'rb').read()
+    (t1, p1), (t2, p2) = pgtm.read_gts(theirs), jgtm.read_gts(mine)
+    assert p1 == p2 == x['pal'] and t1.tobytes() == t2.tobytes() \
+        == x['tiles'].tobytes()
+
+
+def test_native_dl3_outputs():
+    rng = np.random.default_rng(3)
+    px = rng.integers(0, 256, (5000, 3)).astype(np.uint8)
+    tiles = rng.integers(0, 256, (200, 8, 8, 3)).astype(np.uint8)
+    sel = rng.permutation(200)[:77]
+    sums = rng.integers(0, 1 << 20, (4, 300))
+    calls = [('dl3_quant', (px, 16, 7)),
+             ('dl3_quant_capped', (px, 16, 7, 64)),
+             ('dl3_quant_tiles_capped', (tiles, sel, 16, 7, 128)),
+             ('dl3_quant_bins', (sums[0], sums[1], sums[2],
+                                 1 + sums[3] // 4096, 16))]
+    for name, args in calls:
+        (pal, n), (jpal, jn) = getattr(pnative, name)(*args), \
+            getattr(jnative, name)(*args)
+        assert n == jn > 0 and pal.tobytes() == jpal.tobytes(), name
+
+
+def test_native_lzma_and_dither_outputs():
+    rng = np.random.default_rng(4)
+    data = bytes(rng.integers(0, 8, 20000).astype(np.uint8)) + b'tail' * 99
+    for kw in (dict(), dict(lc=3, optimal=False), dict(lc=0, lp=2, pb=4)):
+        enc = pnative.lzma_encode_alone(data, **kw)
+        assert enc == jnative.lzma_encode_alone(data, **kw)
+        assert pnative.lzma_decode_alone(enc + b'xx') == \
+            jnative.lzma_decode_alone(enc + b'xx') == (data, len(enc))
+    two = pnative.lzma_encode_alone(b'a' * 50) + \
+        pnative.lzma_encode_alone(b'b' * 70)
+    assert pnative.lzma_decode_concat(two) == \
+        jnative.lzma_decode_concat(two) == b'a' * 50 + b'b' * 70
+    from tiler_tpu.bitstream.pylzma1 import decode_alone as jpy
+    from tiler_tpu_torch.bitstream.pylzma1 import decode_alone as ppy
+    small = pnative.lzma_encode_alone(data[:3000])
+    assert ppy(small) == jpy(small) == (data[:3000], len(small))
+    frame = rng.integers(0, 256, (24, 40, 3)).astype(np.uint8)
+    assert pnative.fs_posterize(frame, 5).tobytes() == \
+        jnative.fs_posterize(frame, 5).tobytes()
+    assert pnative.fs_tile(frame[:8, :8], 4).tobytes() == \
+        jnative.fs_tile(frame[:8, :8], 4).tobytes()
+
+
+def test_compute_reindex_is_the_original():
+    rng = np.random.default_rng(5)
+    for use in (rng.integers(0, 4, 500), np.zeros(7, np.int64),
+                rng.integers(1, 1000, 64)):
+        (o, m), (jo, jm) = compute_reindex(use), jcompute_reindex(use)
+        assert o.dtype == jo.dtype and o.tobytes() == jo.tobytes()
+        assert m.dtype == jm.dtype and m.tobytes() == jm.tobytes()
+
+
+def test_array_fields_are_the_checkpoint_fields():
+    assert ARRAY_FIELDS == list(_ARRAY_FIELDS)
+
+
+@pytest.mark.parametrize('shape', [(8, 120, 160, 0), (4, 64, 96, 5),
+                                   (16, 48, 40, 1)])
+def test_synthetic_clip_v2_is_the_benchmark_clip(shape):
+    f, h, w, seed = shape
+    assert synthetic_clip_v2(f, h, w, seed).tobytes() == \
+        bench.synthetic_clip_v2(f, h, w, seed).tobytes()
+
+
+def test_step_progress_is_the_original():
+    steps = ['load', 'dither', 'save']
+    mine, theirs = pprogress.StepProgress(steps), jprogress.StepProgress(steps)
+    for s in steps:
+        mine.finish_step(s)
+        theirs.finish_step(s)
+        assert mine.fraction == theirs.fraction
+        assert mine.format_suffix()[:4] == theirs.format_suffix()[:4]
+    assert set(_public(pprogress)) == set(_public(jprogress))

@@ -3,7 +3,7 @@
 
 Encode runs the port on --device (default cuda) and fails when that
 device is missing; it never falls back to the CPU by itself. Decode uses
-the shared numpy decoder.
+the package's numpy decoder.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import numpy as np
 
 
 def _config_from_args(a):
-    from tiler_tpu.config import EncoderConfig, FTQuality
+    from .config import EncoderConfig, FTQuality
     return EncoderConfig(
         tile_palette_size=a.palette_size, palette_count=a.palette_count,
         qb_tiles=a.qb_tiles, max_tiles=a.max_tiles,
@@ -46,13 +46,13 @@ def cmd_encode(a) -> int:
     with open(a.output, 'wb') as fh:
         fh.write(blob)
     if a.gts_out:
-        from tiler_tpu.bitstream.gtm import write_gts
+        from .bitstream.gtm import write_gts
         n_act = int(enc.state.tile_active.sum())
         write_gts(a.gts_out, enc.state.tiles_pal[:n_act],
                   enc.config.tile_palette_size)
     metrics = {k: v for k, v in enc.state.metrics.items()
                if isinstance(v, (int, float, str, dict))}
-    from tiler_tpu.decode import decode_video
+    from .decode import decode_video
     decoded, _ = decode_video(blob)
     metrics['psnr'] = round(psnr(decoded, enc.state.frames_rgb), 3)
     metrics['step_times'] = {k: round(v, 3)
@@ -63,7 +63,7 @@ def cmd_encode(a) -> int:
 
 
 def cmd_decode(a) -> int:
-    from tiler_tpu.decode import decode_video
+    from .decode import decode_video
     with open(a.input, 'rb') as fh:
         frames, stream = decode_video(fh.read())
     np.save(a.output, frames)

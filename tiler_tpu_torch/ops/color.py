@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tiler_tpu.constants import BLUE_MUL, GREEN_MUL, LUMA_DIV, RED_MUL
+from ..constants import BLUE_MUL, GREEN_MUL, LUMA_DIV, RED_MUL
 
 _U_SCALE = 0.5 / (1.0 - BLUE_MUL / LUMA_DIV)
 _V_SCALE = 0.5 / (1.0 - RED_MUL / LUMA_DIV)

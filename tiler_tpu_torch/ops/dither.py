@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tiler_tpu.constants import DITHERING_MAP, TILE_W
+from ..constants import DITHERING_MAP, TILE_W
 
 from .color import color_compare_i32, div_trunc
 

@@ -12,7 +12,7 @@ import functools
 import numpy as np
 import torch
 
-from tiler_tpu.constants import (DCT_BASIS_FLAT, DCT_QUANT, TILE_DCT_SIZE,
+from ..constants import (DCT_BASIS_FLAT, DCT_QUANT, TILE_DCT_SIZE,
                                  TILE_W, UV_RATIO)
 
 from . import color

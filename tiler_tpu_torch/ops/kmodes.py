@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tiler_tpu.constants import DISSIM_SUB_MATCHING_BITS
+from ..constants import DISSIM_SUB_MATCHING_BITS
 
 _BIG = 2 ** 30
 _BITS = DISSIM_SUB_MATCHING_BITS

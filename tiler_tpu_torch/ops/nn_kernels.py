@@ -2,7 +2,11 @@
 kernels in tiler_tpu/ops/pallas_kernels.py, each with its plain torch
 version.
 
-- `nearest_1` (csrc/nn1.cu, `_nn_kernel`): FrameTiling's stage 3.
+- `nearest_1` (csrc/nn1.cu, `_nn_kernel`): FrameTiling's stage 3. The
+  kernel walks candidates that `prepare` (the kernel `nn1_prepare_kernel`
+  of the same source) has written k-major with their norms; the encoder
+  prepares a keyframe's candidates once and reuses them for every query
+  chunk, `nearest_1(q, c)` on raw rows prepares inside.
 - `nearest_1_aug` (csrc/nn1.cu in its augmented mode, `_nn_kernel_aug`):
   the same 1-NN with the norms folded into augmented operands
   (tools/assign_opt_bench.py).
@@ -15,13 +19,14 @@ version for CPU tensors; it never routes a CUDA tensor to the plain
 version. The libraries are built with nvcc for sm_90a at first use, from
 the sources in this package, into build/tiler_tpu_torch/ at the
 repository root (one nvcc per source, started together), and loaded with
-ctypes. `LAUNCHES`, `LAUNCHES_AUG` and `LAUNCHES_BF16` count each
-kernel's launches (and nothing else), so a run can show that its path
-went through the kernels.
+ctypes. `LAUNCHES`, `LAUNCHES_PREP`, `LAUNCHES_AUG` and `LAUNCHES_BF16`
+count each kernel's launches (and nothing else), so a run can show that
+its path went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -32,6 +37,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 LAUNCHES = 0
+LAUNCHES_PREP = 0
 LAUNCHES_AUG = 0
 LAUNCHES_BF16 = 0
 
@@ -40,11 +46,16 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'tiler_tpu_torch')
 # library name -> its CUDA source
 SOURCES = {'nn1': os.path.join(_PKG, 'csrc', 'nn1.cu'),
            'nn1_bf16': os.path.join(_PKG, 'csrc', 'nn1_bf16.cu')}
-_MAX_DIM = 384   # the 128-query tile must fit the block's shared memory
-_BQ = _BC = 128  # the kernel's query and candidate tile rows (csrc/nn1.cu)
+# csrc/nn1.cu's tiles: queries per block, candidates per tile (prepared
+# candidates are padded to it) and the granule the feature width is padded
+# to; checked against the library when it is loaded
+_BQ, _BC, _KG = 128, 256, 8
+# the k-major 128-query tile stays in shared memory beside the ring of
+# 3 x 33 KB, which leaves room for this width (the encoder's are 192, 200)
+_MAX_DIM = 216
 _AUG_PAD = 7     # zero columns after the augmented operands' extra column
 _lock = threading.Lock()
-_lib = None       # libnn1.so: K1 and its augmented mode
+_lib = None       # libnn1.so: K1, its augmented mode and the prepare
 _lib_bf16 = None  # libnn1_bf16.so
 
 
@@ -63,24 +74,26 @@ def library_path(name: str) -> str:
 _SO = library_path('nn1')
 
 
-def _nvcc_one(nvcc: str, name: str) -> None:
-    """nvcc SOURCES[name] into lib<name>.so by way of a temporary file,
-    with its ptxas report beside it as lib<name>.ptxas.txt."""
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+def nvcc_build(nvcc: str, source: str, out: str) -> None:
+    """nvcc `source` into the shared library `out` by way of a temporary
+    file, with its ptxas report beside it as <out minus .so>.ptxas.txt."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=os.path.dirname(out))
     os.close(fd)
     try:
         r = subprocess.run(
             [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
              '-O3', '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC',
-             '-o', tmp, SOURCES[name]], capture_output=True, text=True)
+             '-o', tmp, source],
+            capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(f'nvcc {SOURCES[name]} failed '
+            raise RuntimeError(f'nvcc {source} failed '
                                f'({r.returncode}):\n{r.stderr[-4000:]}')
-        os.replace(tmp, library_path(name))
+        os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    with open(os.path.join(BUILD_DIR, f'lib{name}.ptxas.txt'), 'w') as fh:
+    with open(out[:-len('.so')] + '.ptxas.txt', 'w') as fh:
         fh.write(r.stderr)
 
 
@@ -93,29 +106,44 @@ def build(force: bool = False) -> dict:
             if force or not os.path.exists(so)
             or os.path.getmtime(so) < os.path.getmtime(SOURCES[name])]
     if todo:
-        os.makedirs(BUILD_DIR, exist_ok=True)
         nvcc = _nvcc()
         with ThreadPoolExecutor(len(todo)) as pool:
-            for job in [pool.submit(_nvcc_one, nvcc, n) for n in todo]:
+            for job in [pool.submit(nvcc_build, nvcc, SOURCES[n], out[n])
+                        for n in todo]:
                 job.result()
     return out
 
 
-_RANGE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-               ctypes.c_void_p]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# q, ct, n_q, n_c, dim, dim_pad, n_range, tiles_per_range, err_out,
+# idx_out, part_err, part_idx, stream
+_RANGE_ARGS = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+
+
+def bind_nn1(path: str):
+    """Load a library built from csrc/nn1.cu and declare its functions;
+    its tiles must be the ones this module pads to."""
+    lib = ctypes.CDLL(path)
+    for fn in (lib.tiler_nn1, lib.tiler_nn1_aug):
+        fn.restype = _I
+        fn.argtypes = _RANGE_ARGS
+    lib.tiler_nn1_prepare.restype = _I
+    lib.tiler_nn1_prepare.argtypes = [_P, _I, _I, _I, _P, _P]
+    tiles = [ctypes.c_int() for _ in range(3)]
+    lib.tiler_nn1_tiles.restype = None
+    lib.tiler_nn1_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.tiler_nn1_tiles(*[ctypes.byref(t) for t in tiles])
+    if [t.value for t in tiles] != [_BQ, _BC, _KG]:
+        raise RuntimeError(f'{path}: tiles {[t.value for t in tiles]} != '
+                           f'{[_BQ, _BC, _KG]}')
+    return lib
 
 
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build()['nn1'])
-            for fn in (lib.tiler_nn1, lib.tiler_nn1_aug):
-                fn.restype = ctypes.c_int
-                fn.argtypes = _RANGE_ARGS
-            _lib = lib
+            _lib = bind_nn1(build()['nn1'])
     return _lib
 
 
@@ -133,23 +161,28 @@ def _load_bf16():
     return _lib_bf16
 
 
-def _check(q: torch.Tensor, c: torch.Tensor) -> None:
-    if q.dim() != 2 or c.dim() != 2:
+def _check_operand(x: torch.Tensor) -> None:
+    if x.dim() != 2:
         raise ValueError('nearest_1 takes 2-D [Q,D] queries and [C,D] '
                          'candidates')
-    if q.dtype != torch.float32 or c.dtype != torch.float32:
+    if x.dtype != torch.float32:
         raise TypeError('nearest_1 takes float32 tensors')
+    if not x.is_contiguous():
+        raise ValueError('nearest_1 takes contiguous tensors')
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'nearest_1 runs on cuda or cpu, not {x.device}')
+
+
+def _check(q: torch.Tensor, c: torch.Tensor) -> None:
+    _check_operand(q)
+    _check_operand(c)
     if q.device != c.device:
         raise ValueError(f'queries on {q.device}, candidates on {c.device}')
     if q.shape[1] != c.shape[1]:
         raise ValueError(f'feature widths differ: {q.shape[1]} vs '
                          f'{c.shape[1]}')
-    if not (q.is_contiguous() and c.is_contiguous()):
-        raise ValueError('nearest_1 takes contiguous tensors')
     if c.shape[0] == 0:
         raise ValueError('no candidates')
-    if q.device.type not in ('cpu', 'cuda'):
-        raise ValueError(f'nearest_1 runs on cuda or cpu, not {q.device}')
 
 
 def candidate_ranges(n_q: int, n_c: int, n_sm: int) -> tuple[int, int]:
@@ -166,6 +199,92 @@ def candidate_ranges(n_q: int, n_c: int, n_sm: int) -> tuple[int, int]:
     want = next(r for r, t in enumerate(cost, 1) if t <= 1.05 * min(cost))
     per = -(-c_tiles // want)
     return -(-c_tiles // per), per
+
+
+def full_chunk(device) -> int:
+    """The query chunk that gives every SM of `device` one query tile (a
+    CPU has no tiles to fill: the TPU kernel's 16384)."""
+    if torch.device(device).type != 'cuda':
+        return 16384
+    return _BQ * torch.cuda.get_device_properties(
+        device).multi_processor_count
+
+
+@dataclasses.dataclass
+class Prepared:
+    """Candidates as the K1 kernel walks them: `ct` [tiles, dim_pad + 1,
+    256] f32, per 256-candidate tile the features k-major (rows dim.. and
+    the columns past n_c zero) and, as its last row, the candidates'
+    squared norms (+inf past n_c), of `n_c` candidates of width `dim`."""
+    ct: torch.Tensor
+    n_c: int
+    dim: int
+
+    def rows(self) -> torch.Tensor:
+        """The candidates back as contiguous [n_c, dim] rows."""
+        return self.ct[:, :self.dim].permute(0, 2, 1).reshape(
+            -1, self.dim)[:self.n_c].contiguous()
+
+    def norms(self) -> torch.Tensor:
+        """The [n_c] squared norms."""
+        return self.ct[:, -1].reshape(-1)[:self.n_c]
+
+
+def _prepared_shape(n_c: int, dim: int) -> tuple[int, int, int]:
+    return -(-n_c // _BC), -(-dim // _KG) * _KG + 1, _BC
+
+
+def nn1_prepare_plain(c: torch.Tensor) -> Prepared:
+    """The plain version of the prepare kernel: the padded per-tile
+    transpose, and the norms in the kernel's order, 32 strided partial
+    sums over k = lane, lane + 32, ... then the xor tree 16, 8, 4, 2, 1.
+    Each step p + v*v is formed in float64 and rounded to f32, which is
+    the kernel's fmaf but for a double rounding (about one step in 2^29),
+    so it equals the kernel bit for bit wherever the sums are exact."""
+    n_c, dim = c.shape
+    tiles, rows, bc = _prepared_shape(n_c, dim)
+    k32 = -(-dim // 32) * 32
+    x = c.new_zeros((n_c, k32), dtype=torch.float64)
+    x[:, :dim] = c
+    x = x.view(n_c, k32 // 32, 32)
+    part = c.new_zeros((n_c, 32))
+    for s in range(k32 // 32):
+        part = (part.double() + x[:, s] * x[:, s]).float()
+    lanes = torch.arange(32, device=c.device)
+    for off in (16, 8, 4, 2, 1):
+        part = part + part[:, lanes ^ off]
+    wide = c.new_zeros((tiles * bc, rows))      # [c_pad, dim_pad + 1]
+    wide[:n_c, :dim] = c
+    wide[:, -1] = float('inf')
+    wide[:n_c, -1] = part[:, 0]
+    ct = wide.view(tiles, bc, rows).permute(0, 2, 1).contiguous()
+    return Prepared(ct, n_c, dim)
+
+
+def prepare(c: torch.Tensor) -> Prepared:
+    """Candidates [C, D] f32 -> Prepared, once per candidate set: the
+    prepare kernel on the card, nn1_prepare_plain on the CPU."""
+    global LAUNCHES_PREP
+    _check_operand(c)
+    n_c, dim = c.shape
+    if n_c == 0:
+        raise ValueError('no candidates')
+    if dim > _MAX_DIM:
+        raise ValueError(f'feature width {dim} > {_MAX_DIM}')
+    if c.device.type == 'cpu':
+        return nn1_prepare_plain(c)
+    shape = _prepared_shape(n_c, dim)
+    ct = torch.empty(shape, dtype=torch.float32, device=c.device)
+    lib = _load()
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream(c.device).cuda_stream
+        rc = lib.tiler_nn1_prepare(c.data_ptr(), n_c, dim, shape[1] - 1,
+                                   ct.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f'nn1_prepare kernel launch failed: cudaError '
+                           f'{rc}')
+    LAUNCHES_PREP += 1
+    return Prepared(ct, n_c, dim)
 
 
 def _argmin_chunks(dist_of, n_q: int, n_c: int, c_chunk: int, device):
@@ -199,18 +318,16 @@ def nearest_1_plain(q: torch.Tensor, c: torch.Tensor, c_chunk: int = 8192):
                           q.device)
 
 
-def _range_launch(fn, q, c):
+def _range_launch(fn, q: torch.Tensor, prep: Prepared):
     """Allocate the outputs (and per-range scratch) and launch a kernel
     of libnn1.so over candidate ranges. Returns (idx, err, launched)."""
     n_q, dim = q.shape
-    if dim > _MAX_DIM:
-        raise ValueError(f'feature width {dim} > {_MAX_DIM}')
     err = torch.empty(n_q, dtype=torch.float32, device=q.device)
     idx = torch.empty(n_q, dtype=torch.int32, device=q.device)
     if n_q == 0:
         return idx, err, False
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_range, per = candidate_ranges(n_q, c.shape[0], n_sm)
+    n_range, per = candidate_ranges(n_q, prep.n_c, n_sm)
     part_err = part_idx = None
     if n_range > 1:
         part_err = torch.empty((n_range, n_q), dtype=torch.float32,
@@ -219,8 +336,9 @@ def _range_launch(fn, q, c):
                                device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), c.data_ptr(), n_q, c.shape[0], dim, n_range,
-                per, err.data_ptr(), idx.data_ptr(),
+        rc = fn(q.data_ptr(), prep.ct.data_ptr(), n_q, prep.n_c, dim,
+                prep.ct.shape[1] - 1, n_range, per,
+                err.data_ptr(), idx.data_ptr(),
                 None if part_err is None else part_err.data_ptr(),
                 None if part_idx is None else part_idx.data_ptr(), stream)
     if rc != 0:
@@ -229,16 +347,38 @@ def _range_launch(fn, q, c):
     return idx, err, True
 
 
-def nearest_1(q: torch.Tensor, c: torch.Tensor):
-    """Exact 1-NN of each query row among the candidate rows: (idx [Q]
-    int32, err [Q] float32 squared L2), the lexicographic minimum of
-    (distance, index). CUDA tensors go through the kernel, CPU tensors
-    through nearest_1_plain."""
+def _check_prepared(q: torch.Tensor, prep: Prepared) -> None:
+    _check_operand(q)
+    if prep.n_c < 1 or prep.ct.dtype != torch.float32 \
+            or prep.ct.shape != _prepared_shape(prep.n_c, prep.dim) \
+            or not prep.ct.is_contiguous():
+        raise ValueError('candidates not as prepare() makes them')
+    if q.device != prep.ct.device:
+        raise ValueError(f'queries on {q.device}, candidates on '
+                         f'{prep.ct.device}')
+    if q.shape[1] != prep.dim:
+        raise ValueError(f'feature widths differ: {q.shape[1]} vs '
+                         f'{prep.dim}')
+
+
+def nearest_1(q: torch.Tensor, c):
+    """Exact 1-NN of each query row among the candidates, raw rows [C, D]
+    or a Prepared set: (idx [Q] int32, err [Q] float32 squared L2), the
+    lexicographic minimum of (distance, index). CUDA tensors go through
+    the kernels (prepare first for raw rows), CPU tensors through
+    nearest_1_plain."""
     global LAUNCHES
-    _check(q, c)
-    if q.device.type == 'cpu':
-        return nearest_1_plain(q, c)
-    idx, err, launched = _range_launch(_load().tiler_nn1, q, c)
+    if isinstance(c, Prepared):
+        _check_prepared(q, c)
+        if q.device.type == 'cpu':
+            return nearest_1_plain(q, c.rows())
+        prep = c
+    else:
+        _check(q, c)
+        if q.device.type == 'cpu':
+            return nearest_1_plain(q, c)
+        prep = prepare(c)
+    idx, err, launched = _range_launch(_load().tiler_nn1, q, prep)
     LAUNCHES += launched
     return idx, err
 
@@ -278,7 +418,8 @@ def nearest_1_aug(q: torch.Tensor, c: torch.Tensor):
     if q.device.type == 'cpu':
         return nearest_1_aug_plain(q, c)
     qa, ca, q2 = augment(q, c)
-    idx, score, launched = _range_launch(_load().tiler_nn1_aug, qa, ca)
+    idx, score, launched = _range_launch(_load().tiler_nn1_aug, qa,
+                                         prepare(ca))
     LAUNCHES_AUG += launched
     return idx, score + q2
 

@@ -1,9 +1,9 @@
 """Palette quantization: the counterpart of tiler_tpu/ops/palette.py.
 
-DL3 runs in the shared C++ library (tiler_tpu.native, built by the host
-compiler at first use). The Value-at-Risk quantizer, the LHS entry sort
-and the packed/RGB converters are host numpy, re-homed unchanged (the
-JAX package's module imports jax through its colour module).
+DL3 runs in the package's C++ library (tiler_tpu_torch.native, built by
+the host compiler at first use). The Value-at-Risk quantizer, the LHS
+entry sort and the packed/RGB converters are host numpy, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -11,8 +11,7 @@ import heapq
 
 import numpy as np
 
-from tiler_tpu import native
-
+from .. import native
 from .color import hsv_to_rgb_int_np, luma_int, rgb_to_hsv_int_np
 
 _RGB_W = 13

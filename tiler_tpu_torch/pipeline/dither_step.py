@@ -17,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from tiler_tpu.constants import TILE_W, palette_pattern
+from ..constants import TILE_W, palette_pattern
 
 from ..ops import dither, features, palette
 from ..ops.kmeans import kmeans_core

@@ -13,9 +13,9 @@ import time
 import numpy as np
 import torch
 
-from tiler_tpu.config import EncoderConfig
-from tiler_tpu.constants import ENCODER_STEPS
-from tiler_tpu.utils.progress import StepProgress
+from ..config import EncoderConfig
+from ..constants import ENCODER_STEPS
+from ..utils.progress import StepProgress
 
 from .state import EncoderState
 

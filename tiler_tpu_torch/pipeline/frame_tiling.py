@@ -11,8 +11,10 @@ Three bulk phases:
      wavelet basis's exact signed mirror permutations when that halves
      the work;
   3. per keyframe, the exact 1-NN of each changed cell's source-tile
-     features among the combos (ops.nn_kernels: the CUDA kernel on the
-     card), with unchanged cells forward-filled from the previous frame.
+     features among the combos (ops.nn_kernels: the CUDA kernels on the
+     card), which are prepared for the kernel once per keyframe and
+     walked by every query chunk; unchanged cells are forward-filled
+     from the previous frame.
 Candidate order is np.nonzero(used)'s row-major order in both stage-2
 paths, so stage-3 ties resolve as in the JAX package.
 """
@@ -23,15 +25,14 @@ import time
 import numpy as np
 import torch
 
-from tiler_tpu.config import FTQuality
-from tiler_tpu.constants import TILE_DCT_SIZE, TILE_W
+from ..config import FTQuality
+from ..constants import TILE_DCT_SIZE, TILE_W
 
 from ..ops import features, knn, nn_kernels
 from .load import changed_mask
 from .state import EncoderState
 
 _ATTR_ORDER = np.array([0, 1, 3, 2], np.int64)  # h|v<<1 per dataset slot
-_Q_CHUNK = 16384          # stage-3 queries per kernel launch
 _FEAT_CHUNK = 524288      # stage-2 combos per feature pass
 
 
@@ -175,10 +176,12 @@ def candidate_features(state: EncoderState, k: int, used, tile_of,
 
 # -- stage 3: query features + exact 1-NN ---------------------------------
 
-def _assign_keyframe(state: EncoderState, k: int, feats, ch_all, src_all):
+def _assign_keyframe(state: EncoderState, k: int, cands, ch_all, src_all):
     """Stage 3 for keyframe k: the 1-NN of each changed cell (all cells
-    of the first frame) among the keyframe's combos, forward-filled to
-    the unchanged cells. Returns (best_idx [n_q], best_err [n_q], n_run,
+    of the first frame) among the keyframe's combos `cands` (a
+    nn_kernels.Prepared set), forward-filled to the unchanged cells. A
+    query chunk gives every SM one query tile; the results do not depend
+    on the chunking. Returns (best_idx [n_q], best_err [n_q], n_run,
     kernel calls); a cell byte-identical to the previous frame has the
     same source tile and so the same nearest combo."""
     cfg = state.config
@@ -191,11 +194,12 @@ def _assign_keyframe(state: EncoderState, k: int, feats, ch_all, src_all):
     rows_d = torch.from_numpy((s * cells + changed).astype(np.int64)).to(
         state.device)
     idx_parts, err_parts = [], []
-    for lo in range(0, len(changed), _Q_CHUNK):
+    q_chunk = nn_kernels.full_chunk(state.device)
+    for lo in range(0, len(changed), q_chunk):
         q = features.psyv_features_rgb(
-            src_all[rows_d[lo:lo + _Q_CHUNK]], gamma_value=_ft_gamma(cfg),
+            src_all[rows_d[lo:lo + q_chunk]], gamma_value=_ft_gamma(cfg),
             use_wavelets=cfg.use_wavelets)
-        idx, err = nn_kernels.nearest_1(q, feats)
+        idx, err = nn_kernels.nearest_1(q, cands)
         idx_parts.append(idx)
         err_parts.append(err)
     run_idx = torch.cat(idx_parts).cpu().numpy()
@@ -262,9 +266,11 @@ def run_frame_tiling(state: EncoderState) -> EncoderState:
         t_feats += time.perf_counter() - t0
         t0 = time.perf_counter()
         knn_sizes.append(int(feats.shape[0]))
-        best_idx, best_err, n_run, calls = _assign_keyframe(
-            state, k, feats, ch_all, src_all)
+        cands = nn_kernels.prepare(feats)   # once per keyframe
         del feats
+        best_idx, best_err, n_run, calls = _assign_keyframe(
+            state, k, cands, ch_all, src_all)
+        del cands
         nn_calls += calls
         s, e = state.keyframes[k]
         shape = (e - s + 1, state.tilemap_h, state.tilemap_w)

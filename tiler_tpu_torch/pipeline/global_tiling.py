@@ -17,8 +17,8 @@ import time
 import numpy as np
 import torch
 
-from tiler_tpu.bitstream.gtm import read_gts
-from tiler_tpu.constants import KMODES_ZONE_COUNT, equal_quality_tile_count
+from ..bitstream.gtm import read_gts
+from ..constants import KMODES_ZONE_COUNT, equal_quality_tile_count
 
 from ..ops.kmodes import kmodes_batch_gather
 from .reindex import run_reindex

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from tiler_tpu.constants import (BITS_PER_COMP, MAX_TILEMAP_H,
+from ..constants import (BITS_PER_COMP, MAX_TILEMAP_H,
                                  MAX_TILEMAP_W, SHOT_TRANS_AVG_FRAMES,
                                  SHOT_TRANS_GRACE_PERIOD,
                                  SHOT_TRANS_HARD_THRES,

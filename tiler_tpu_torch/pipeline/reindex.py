@@ -1,15 +1,25 @@
 """Reindex step: recount usage, drop unused tiles, sort by use count —
-the counterpart of tiler_tpu/pipeline/reindex.py. The order comes from
-the shared `compute_reindex`; the tile pixels are permuted on the
-device."""
+the counterpart of tiler_tpu/pipeline/reindex.py. Sort is use-count
+descending with original-index tie-break (CompareTileUseCountRev,
+main.pas:4472-4481) so frequent tiles get small indices; the tile pixels
+are permuted on the device."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from tiler_tpu.pipeline.reindex import compute_reindex
-
 from .state import EncoderState
+
+
+def compute_reindex(use: np.ndarray):
+    """Pure: use counts [N] -> (order, idx_map). Tiles with zero use drop;
+    survivors sort by use desc, index asc."""
+    n = len(use)
+    act = np.flatnonzero(use > 0)
+    order = act[np.lexsort((act, -use[act]))]
+    idx_map = np.full(n, -1, np.int64)
+    idx_map[order] = np.arange(len(order))
+    return order, idx_map
 
 
 def run_reindex(state: EncoderState) -> EncoderState:

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tiler_tpu.constants import TILE_DCT_SIZE
+from ..constants import TILE_DCT_SIZE
 
 from ..ops import features
 from .state import EncoderState

@@ -6,11 +6,11 @@ tensors on `state.device`: the source tiles (built once from the frames)
 and the dithered tile pixels `tiles_pal`, which live on the device from
 Dither to Reindex and come to the host on first `.tiles_pal` access.
 
-`from_reference_state` / `to_reference_state` carry a state across the
-two packages through the numpy arrays that the checkpoint format names
-(tiler_tpu.utils.checkpoint._ARRAY_FIELDS): the parity tests load the
-JAX package's state into the port this way, and Save hands the port's
-state to the shared GTM writer.
+`from_reference_state` / `state_arrays` carry a state across the two
+packages as plain numpy arrays and scalars, named by ARRAY_FIELDS (the
+fields of the JAX package's checkpoint format): the parity tests load
+the JAX package's state into the port and build one from the port's
+this way. This module imports nothing of that package.
 """
 from __future__ import annotations
 
@@ -20,9 +20,17 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tiler_tpu.config import EncoderConfig
-from tiler_tpu.constants import TILE_W
-from tiler_tpu.utils.checkpoint import _ARRAY_FIELDS
+from ..config import EncoderConfig, FTQuality
+from ..constants import TILE_W
+
+# the state's array fields, in the JAX package's checkpoint order
+ARRAY_FIELDS = [
+    'frames_rgb', 'fs_pixels', 'tm_tile', 'tm_pal', 'tm_h', 'tm_v',
+    'stm_tile', 'stm_pal', 'stm_h', 'stm_v', 'stm_smooth',
+    'tiles_rgb', 'tiles_pal', 'tile_active', 'tile_use', 'tile_dpi',
+    'keyframes', 'palettes_rgb', 'palette_centroids',
+]
+_SCALAR_FIELDS = ['fps', 'tilemap_w', 'tilemap_h']
 
 
 @dataclasses.dataclass
@@ -114,6 +122,14 @@ class EncoderState:
         return self.tilemap_w * self.tilemap_h
 
     @property
+    def screen_w(self) -> int:
+        return self.tilemap_w * TILE_W
+
+    @property
+    def screen_h(self) -> int:
+        return self.tilemap_h * TILE_W
+
+    @property
     def n_tiles(self) -> int:
         if self._tiles_pal_host is not None:
             return len(self._tiles_pal_host)
@@ -129,30 +145,48 @@ class EncoderState:
         return kf
 
 
+def _own_config(cfg) -> EncoderConfig:
+    """The port's EncoderConfig with the fields of any config object that
+    carries them (the JAX package's dataclass has the same names)."""
+    if isinstance(cfg, EncoderConfig):
+        return cfg
+    kv = {f.name: getattr(cfg, f.name)
+          for f in dataclasses.fields(EncoderConfig)}
+    kv['ft_quality'] = FTQuality(int(kv['ft_quality']))
+    return EncoderConfig(**kv)
+
+
 def from_reference_state(ref, device) -> EncoderState:
-    """A port state holding copies of a tiler_tpu EncoderState's arrays."""
-    st = EncoderState(config=ref.config, device=torch.device(device),
-                      fps=ref.fps, tilemap_w=ref.tilemap_w,
-                      tilemap_h=ref.tilemap_h)
-    for f in _ARRAY_FIELDS:
-        v = ref.peek_tiles_pal() if f == 'tiles_pal' else getattr(ref, f)
+    """A port state holding copies of the arrays of `ref`: a mapping (as
+    state_arrays returns) or any object with those attributes, such as
+    the JAX package's EncoderState. A device-resident tiles_pal is read
+    through the object's peek_tiles_pal() where it has one."""
+    if isinstance(ref, dict):
+        get = ref.get
+    else:
+        def get(name, default=None):
+            if name == 'tiles_pal' and hasattr(ref, 'peek_tiles_pal'):
+                return ref.peek_tiles_pal()
+            return getattr(ref, name, default)
+    st = EncoderState(config=_own_config(get('config')),
+                      device=torch.device(device))
+    for f in _SCALAR_FIELDS:
+        setattr(st, f, get(f))
+    for f in ARRAY_FIELDS + ['changed_mask']:
+        v = get(f)
         setattr(st, f, None if v is None else np.array(v))
-    if ref.changed_mask is not None:
-        st.changed_mask = np.array(ref.changed_mask)
-    st.step_times = dict(ref.step_times)
-    st.metrics = dict(ref.metrics)
+    st.step_times = dict(get('step_times') or {})
+    st.metrics = dict(get('metrics') or {})
     return st
 
 
-def to_reference_state(st: EncoderState):
-    """A tiler_tpu EncoderState holding the port state's host arrays (the
-    device tiles come to the host here)."""
-    from tiler_tpu.pipeline.state import EncoderState as RefState
-    ref = RefState(config=st.config, fps=st.fps, tilemap_w=st.tilemap_w,
-                   tilemap_h=st.tilemap_h)
-    for f in _ARRAY_FIELDS:
-        setattr(ref, f, getattr(st, f))
-    ref.changed_mask = st.changed_mask
-    ref.step_times = st.step_times
-    ref.metrics = st.metrics
-    return ref
+def state_arrays(st: EncoderState) -> dict:
+    """The state as a plain dict: config, the scalars, every field of
+    ARRAY_FIELDS and changed_mask as host numpy arrays (the device tiles
+    come to the host here), step_times and metrics."""
+    out = {'config': st.config}
+    for f in _SCALAR_FIELDS + ARRAY_FIELDS + ['changed_mask']:
+        out[f] = getattr(st, f)
+    out['step_times'] = st.step_times
+    out['metrics'] = st.metrics
+    return out

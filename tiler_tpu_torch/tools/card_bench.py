@@ -1,0 +1,34 @@
+"""Two measurements of the card behind the design of csrc/nn1.cu:
+
+    python -m tiler_tpu_torch.tools.card_bench
+
+Builds csrc/card_bench.cu with nvcc into build/tiler_tpu_torch/ and runs
+it: cycles per warp-wide shared-memory load by width and lane pattern,
+and the FP32 rate of 8 x 8 outer-product FFMAs from registers alone.
+Prints the program's lines after the card's name and power limit.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+from ..ops import nn_kernels as nk
+
+
+def main() -> int:
+    src = os.path.join(os.path.dirname(nk.SOURCES['nn1']), 'card_bench.cu')
+    exe = os.path.join(nk.BUILD_DIR, 'card_bench')
+    os.makedirs(nk.BUILD_DIR, exist_ok=True)
+    subprocess.run([nk._nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
+                    '-std=c++17', '-O3', '-o', exe, src], check=True)
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60)
+    print(card.stdout.strip().splitlines()[0], flush=True)
+    return subprocess.run([exe], timeout=600).returncode
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,5 +1,6 @@
-"""What the experiment tools share: the device (a card unless asked for
-the CPU), a timer and PsyV features of random tiles."""
+"""What the experiment tools and the smoke run share: the device (a card
+unless asked for the CPU), a timer, PsyV features of random tiles and
+the synthetic cuts_v2 clip."""
 from __future__ import annotations
 
 import time
@@ -47,3 +48,46 @@ def psyv_of_tiles(tiles_u8: np.ndarray, dev: torch.device) -> torch.Tensor:
         out[lo:lo + (1 << 16)] = features.psyv_features_rgb(
             t, gamma_value=None, use_lab=False, use_wavelets=True)
     return out
+
+
+def synthetic_clip_v2(f, h, w, seed=0):
+    """The cuts_v2 clip [f,h,w,3] uint8: three scenes (hard cuts -> 3
+    keyframes) and a static bottom band (~38% of cells unchanged within a
+    scene), as real video has shots and static regions. Frame for frame
+    the clip of the JAX package's benchmark script, so that the two
+    packages' streams compare."""
+    rng = np.random.default_rng(seed)
+    frames = np.zeros((f, h, w, 3), np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    h_static = (int(h * 0.38) // 8) * 8      # whole 8px tile rows
+    cuts = [0, (f * 3) // 8, (f * 11) // 16, f]   # 16 -> scenes 6/5/5
+    mixes = [np.array([[1., .7, .4], [.2, .5, 1.]]),
+             np.array([[.3, 1., .5], [1., .3, .6]]),
+             np.array([[.5, .4, 1.], [.9, .8, .2]])]
+    for s in range(3):
+        lo, hi = cuts[s], cuts[s + 1]
+        mix = mixes[s]
+        # per-scene static band content (noise frozen within the scene)
+        if s == 0:
+            sb = ((xx * 3) % 256)[..., None] * mix[0]
+        elif s == 1:
+            sb = ((yy * 2 + xx) % 256)[..., None] * mix[1]
+        else:
+            sb = (((xx // 4) * 7) % 256)[..., None] * mix[0]
+        static_band = np.clip(
+            sb[h - h_static:] + rng.normal(0, 6, (h_static, w, 3)),
+            0, 255).astype(np.uint8)
+        for i in range(lo, hi):
+            t = i - lo
+            if s == 0:
+                base = ((xx * 2 + t * 3) % 256)[..., None] * mix[0] \
+                    + ((yy + 2 * t) % 64)[..., None] * mix[1]
+            elif s == 1:
+                base = ((yy * 2 - t * 5) % 256)[..., None] * mix[0] \
+                    + (((xx + yy) // 2 + t) % 96)[..., None] * mix[1]
+            else:
+                base = (((xx + yy) + t * 4) % 256)[..., None] * mix[0] \
+                    + ((xx % 128 + t) % 128)[..., None] * mix[1]
+            frames[i] = np.clip(base + rng.normal(0, 6, (h, w, 3)), 0, 255)
+            frames[i, h - h_static:] = static_band
+    return frames

@@ -5,9 +5,9 @@ JSON line; any failure raises and exits non-zero):
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. build: both CUDA sources of the 1-NN kernels (tiler_tpu_torch/csrc/
      nn1.cu with K1, its augmented mode K2 and the prepare kernel,
-     nn1_bf16.cu with K3) from this checkout, one nvcc each, started
-     together, and the package's C++ library (g++); ptxas must report no
-     spills;
+     nn1_bf16.cu with K3 and its prepare kernel) from this checkout, one
+     nvcc each, started together, and the package's C++ library (g++);
+     ptxas must report no spills;
   3. each kernel vs its plain torch version on the card at the main
      path's shapes (Q=16384 queries, C=262144 candidates, D=192), with
      the tolerance stated per case; kernel, plain version and the
@@ -17,7 +17,8 @@ JSON line; any failure raises and exits non-zero):
   4. the paths, each with the launch counts set to 0 just before it and
      read just after:
      a. the experiment tools (tiler_tpu_torch.tools.nn_prec_bench and
-        assign_opt_bench) at their full shapes: K1, K2 and K3;
+        assign_opt_bench) at their full shapes: K1, K2, K3 and both
+        prepare kernels;
      b. the configurations on the 8x120x160 clip (default, Yliluoma +
         VAR, KModes restarts, a 64-colour tile palette, no wavelets, and
         the reload of the tileset the Yliluoma + VAR encode wrote), each
@@ -65,8 +66,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, runs: int = 7) -> float:
-    """Median milliseconds of fn() over `runs` launches, CUDA events."""
+def time_ms(fn, runs: int = 7, calls: int = 1) -> float:
+    """Median milliseconds of fn() over `runs` timings, CUDA events
+    around `calls` calls in a row (more than one for a kernel shorter
+    than the host's time to enqueue it, which a single call would time
+    instead)."""
     import torch
     fn()
     times = []
@@ -74,10 +78,11 @@ def time_ms(fn, runs: int = 7) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return float(np.median(times))
 
 
@@ -122,13 +127,14 @@ def gemm_f32(q, c, c_chunk: int = 8192):
         q @ c[cs:cs + c_chunk].T
 
 
-def turns(fns: dict, runs: int = 7) -> dict:
+def turns(fns: dict, runs: int = 7, calls: int = 1) -> dict:
     """Each fn timed twice, in turns (a, b, c, c, b, a); the lower median
-    of each and both readings."""
+    of each and both readings. The one named 'kernel' is timed over
+    `calls` calls in a row."""
     order = list(fns) + list(fns)[::-1]
     got = {k: [] for k in fns}
     for k in order:
-        got[k].append(time_ms(fns[k], runs))
+        got[k].append(time_ms(fns[k], runs, calls if k == 'kernel' else 1))
     return {k: {'ms': min(v), 'all': v} for k, v in got.items()}
 
 
@@ -173,6 +179,56 @@ def check_prepare(card: str) -> dict:
            'plain_ms': t['plain']['ms'], 'bound_ms': 1e3 * t_bytes,
            'bound_by': 'bytes', 'library_ms': None}
     say('nn1_prepare_time', card=card, candidates=C, dim=D, **t)
+    return rec
+
+
+def check_prepare_bf16(card: str) -> dict:
+    """Phase 3, the bf16 prepare kernel against its plain version at
+    check_prepare's shapes: the tiles' feature bytes (rounded, padded,
+    cut into K-chunks and swizzled) equal always, and rows() gives the
+    rounded rows back; the norms bit for bit on integer features and on
+    normal ones but for the plain version's double rounding (at most 2
+    norms may differ, by one ulp). Timed at C x D over 4 launches in a
+    row; its bound is its bytes. Returns its JSON record."""
+    import torch
+
+    from tiler_tpu_torch.ops import nn_kernels as nk
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(5)
+    worst = 0.0
+    for n, d, ints in ((5013, 3, True), (20000, 100, True), (C, D, True),
+                       (5013, 200, True), (100001, 200, False),
+                       (C, D, False)):       # the last one is timed
+        x = rng.integers(-64, 64, (n, d)).astype(np.float32) if ints else \
+            rng.standard_normal((n, d), np.float32)
+        c = torch.from_numpy(x).to(dev)
+        got, want = nk.prepare_bf16(c), nk.nn1_bf16_prepare_plain(c)
+        torch.cuda.synchronize()
+        cut = 2 * got.dim_pad * nk._BC_BF16         # a tile's feature bytes
+        if got.ct.shape != want.ct.shape or \
+                not torch.equal(got.ct[:, :cut], want.ct[:, :cut]) or \
+                not torch.equal(got.rows(), nk.bf16_round(c)):
+            raise AssertionError(f'nn1_bf16_prepare {n}x{d}: tiles differ')
+        differ = int((got.ct[:, cut:] != want.ct[:, cut:])
+                     .reshape(-1, 4).any(1).sum())  # padding norms too
+        gap = (got.norms() - want.norms()).abs().max().item()
+        worst = max(worst, gap)
+        if differ > (0 if ints else 2) or \
+                gap > 1e-6 * want.norms().max().item():
+            raise AssertionError(f'nn1_bf16_prepare {n}x{d}: {differ} norms '
+                                 f'differ, by up to {gap}')
+        say('nn1_bf16_prepare_check', candidates=n, dim=d, integers=ints,
+            tiles='bit-equal', norms_differ=differ)
+    t = turns({'plain': lambda: nk.nn1_bf16_prepare_plain(c),
+               'kernel': lambda: nk.prepare_bf16(c)}, calls=4)
+    t_bytes = (4.0 * C * D + 2.0 * C * got.dim_pad + 4.0 * C) / PEAK_BYTES
+    rec = {'name': 'nn1_bf16_prepare', 'route': 'cuda',
+           'source': 'tiler_tpu_torch/csrc/nn1_bf16.cu',
+           'replaces': 'tiler_tpu/ops/pallas_kernels.py:212',
+           'launches': 0, 'max_abs_err': worst, 'ms': t['kernel']['ms'],
+           'plain_ms': t['plain']['ms'], 'bound_ms': 1e3 * t_bytes,
+           'bound_by': 'bytes', 'library_ms': None}
+    say('nn1_bf16_prepare_time', card=card, candidates=C, dim=D, **t)
     return rec
 
 
@@ -341,13 +397,98 @@ def gemm_bf16(q, c, c_chunk: int = 8192):
         torch.mm(q, c[cs:cs + c_chunk].T, out_dtype=torch.float32)
 
 
+def check_bf16(card: str, rec: dict) -> None:
+    """Phase 3, what K3 gets beyond check_variant: the prepared form and
+    widths that fill no K-chunk at split candidate ranges, bit equal on
+    integer features; kernel (prepared candidates, 4 launches in a row),
+    plain version and library call timed in turns at a full 16384-query
+    chunk, at a keyframe's short last chunks with the ranges taken, and at
+    one query tile per SM; at 1,048,576 candidates held against the plain
+    version (err within rtol/atol, winners apart only at near ties in
+    the bf16 metric) and timed. Fills rec's times and bound."""
+    import torch
+
+    from tiler_tpu_torch.ops import nn_kernels as nk
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(17)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def ints(n, d):
+        return torch.from_numpy(rng.integers(-64, 64, (n, d))
+                                .astype(np.float32)).to(dev)
+    for kern, name in (
+            (nk.nearest_1_bf16, 'nn1_bf16'),
+            (lambda q, c: nk.nearest_1_bf16(q, nk.prepare_bf16(c)),
+             'nn1_bf16 prepared')):
+        for d in (3, 100, 192):
+            _exact(name, kern, nk.nearest_1_bf16_plain, ints(999, d),
+                   ints(20000, d), f'width {d}')
+    say('nn1_bf16_widths', widths=[3, 100, 192], queries=999,
+        candidates=20000,
+        ranges=nk.candidate_ranges_bf16(999, 20000, n_sm)[0])
+    qi, ci = ints(max(Q_SHORT), D), ints(C, D)
+    ci[C // 2:C // 2 + 1000] = qi[:1000]            # exact matches
+    pi = nk.prepare_bf16(ci)
+    for n in Q_SHORT:
+        _exact('nn1_bf16 prepared', lambda q, c: nk.nearest_1_bf16(q, pi),
+               nk.nearest_1_bf16_plain, qi[:n].contiguous(), ci,
+               f'{n} queries')
+    del qi, ci, pi
+
+    q_sm = nk._BQ_BF16 * n_sm
+    qf = torch.from_numpy(rng.standard_normal((max(Q, q_sm), D),
+                                              np.float32)).to(dev)
+    cf = torch.from_numpy(rng.standard_normal((C, D), np.float32)).to(dev)
+    cb = cf.to(torch.bfloat16)
+    prep = nk.prepare_bf16(cf)
+    rows = []
+    for n in (Q,) + Q_SHORT + (q_sm,):
+        qs = qf[:n].contiguous()
+        qb = qs.to(torch.bfloat16)
+        t = turns({'plain': lambda: nk.nearest_1_bf16_plain(qs, cf),
+                   'kernel': lambda: nk.nearest_1_bf16(qs, prep),
+                   'library': lambda: gemm_bf16(qb, cb)}, calls=4)
+        b = bound(n, C, D, PEAK_BF16)
+        rows.append({'queries': n,
+                     'ranges': nk.candidate_ranges_bf16(n, C, n_sm)[0],
+                     'kernel_ms': t['kernel'], 'plain_ms': t['plain'],
+                     'library_ms': t['library'], **b,
+                     'share_of_bound': b['bound_ms'] / t['kernel']['ms']})
+    main = rows[0]
+    rec.update(ms=main['kernel_ms']['ms'], plain_ms=main['plain_ms']['ms'],
+               library_ms=main['library_ms']['ms'],
+               bound_ms=main['bound_ms'], bound_by=main['bound_by'])
+    say('nn1_bf16_time', card=card, candidates=C, dim=D,
+        library_call='torch.mm out_dtype=float32',
+        kernel_tflops=2.0 * Q * C * D / (rec['ms'] * 1e-3) / 1e12,
+        share_of_bound=rec['bound_ms'] / rec['ms'], rows=rows)
+    del cf, cb, prep
+
+    c_big = torch.from_numpy(rng.standard_normal((C_BIG, D), np.float32)
+                             ).to(dev)
+    qs = qf[:Q].contiguous()
+    ki, ke, pi, pe = _both(nk.nearest_1_bf16, nk.nearest_1_bf16_plain, qs,
+                           c_big)
+    torch.testing.assert_close(ke, pe, rtol=1e-5, atol=1e-4)
+    differ = _near_ties_only(qs, c_big, ki, pi, _bf16_l2_64)
+    p_big, qb, cb = nk.prepare_bf16(c_big), qs.to(torch.bfloat16), \
+        c_big.to(torch.bfloat16)
+    t = turns({'plain': lambda: nk.nearest_1_bf16_plain(qs, c_big),
+               'kernel': lambda: nk.nearest_1_bf16(qs, p_big),
+               'library': lambda: gemm_bf16(qb, cb)}, runs=5, calls=2)
+    b = bound(Q, C_BIG, D, PEAK_BF16)
+    say('nn1_bf16_1m', card=card, queries=Q, candidates=C_BIG,
+        idx_differ=differ, max_abs_err=float((ke - pe).abs().max()), **t,
+        **b, share_of_bound=b['bound_ms'] / t['kernel']['ms'])
+
+
 def check_variants(card: str) -> list:
     """Phase 3, K2 and K3: checks, then kernel, plain version and library
-    call timed at Q x C x D in turns; K2 and K1 also held against their
-    plain versions (err within rtol/atol, winners apart only at near
-    ties) and timed at the assign tool's 1,048,576 candidates. K2's
-    library call is its plain version (one matmul and an argmin per
-    chunk). Returns their JSON records."""
+    call timed at Q x C x D in turns (K3's in check_bf16); K2 and K1 also
+    held against their plain versions (err within rtol/atol, winners
+    apart only at near ties) and timed at the assign tool's 1,048,576
+    candidates. K2's library call is its plain version (one matmul and an
+    argmin per chunk). Returns their JSON records."""
     import torch
 
     from tiler_tpu_torch.ops import nn_kernels as nk
@@ -365,7 +506,6 @@ def check_variants(card: str) -> list:
     dev = torch.device('cuda')
     qf = torch.from_numpy(rng.standard_normal((Q, D), np.float32)).to(dev)
     cf = torch.from_numpy(rng.standard_normal((C, D), np.float32)).to(dev)
-    qb, cb = qf.to(torch.bfloat16), cf.to(torch.bfloat16)
     t = turns({'plain': lambda: nk.nearest_1_aug_plain(qf, cf),
                'kernel': lambda: nk.nearest_1_aug(qf, cf)})
     aug.update(ms=t['kernel']['ms'], plain_ms=t['plain']['ms'],
@@ -374,15 +514,7 @@ def check_variants(card: str) -> list:
     say('nn1_aug_time', card=card, queries=Q, candidates=C, **t,
         kernel_tflops=2.0 * Q * C * (D + 8) / (aug['ms'] * 1e-3) / 1e12,
         share_of_bound=aug['bound_ms'] / aug['ms'])
-    t = turns({'plain': lambda: nk.nearest_1_bf16_plain(qf, cf),
-               'kernel': lambda: nk.nearest_1_bf16(qf, cf),
-               'library': lambda: gemm_bf16(qb, cb)})
-    bf16.update(ms=t['kernel']['ms'], plain_ms=t['plain']['ms'],
-                library_ms=t['library']['ms'], **bound(Q, C, D, PEAK_BF16))
-    say('nn1_bf16_time', card=card, queries=Q, candidates=C, **t,
-        library_call='torch.mm out_dtype=float32',
-        kernel_tflops=2.0 * Q * C * D / (bf16['ms'] * 1e-3) / 1e12,
-        share_of_bound=bf16['bound_ms'] / bf16['ms'])
+    check_bf16(card, bf16)
 
     c_big = torch.from_numpy(rng.standard_normal((C_BIG, D), np.float32)
                              ).to(dev)
@@ -406,17 +538,19 @@ def check_variants(card: str) -> list:
 
 
 def run_tools() -> dict:
-    """The path of K2 and K3: both experiment tools at their default
-    (full) shapes, in this process, with the launch counts set to 0
-    before and read after; the assign tool's LUTs bit-equal and its
-    K1/K2 and float64 winner agreements at least AGREE_FLOOR."""
+    """The path of K2, K3 and K3's prepare: both experiment tools at
+    their default (full) shapes, in this process, with the launch counts
+    set to 0 before and read after; the assign tool's LUTs bit-equal and
+    its K1/K2 and float64 winner agreements at least AGREE_FLOOR."""
     from tiler_tpu_torch.ops import nn_kernels as nk
     from tiler_tpu_torch.tools import assign_opt_bench, nn_prec_bench
     nk.LAUNCHES = nk.LAUNCHES_PREP = nk.LAUNCHES_AUG = nk.LAUNCHES_BF16 = 0
+    nk.LAUNCHES_BF16_PREP = 0
     prec = nn_prec_bench.main([])
     aob = assign_opt_bench.main([])
     counts = {'nn1': nk.LAUNCHES, 'nn1_prepare': nk.LAUNCHES_PREP,
-              'nn1_aug': nk.LAUNCHES_AUG, 'nn1_bf16': nk.LAUNCHES_BF16}
+              'nn1_aug': nk.LAUNCHES_AUG, 'nn1_bf16': nk.LAUNCHES_BF16,
+              'nn1_bf16_prepare': nk.LAUNCHES_BF16_PREP}
     say('tools', nn_prec_bench=prec, assign_opt_bench=aob, launches=counts)
     if min(counts.values()) <= 0:
         raise AssertionError(f'a kernel of the tools path never launched: '
@@ -540,7 +674,7 @@ def main() -> int:
     build_kernels()
     prep = check_prepare(card)
     record = check_kernel(card)
-    variants = check_variants(card)
+    variants = check_variants(card) + [check_prepare_bf16(card)]
 
     counts = run_tools()
     for rec in variants:

@@ -3,6 +3,7 @@ _nn_call_aug and _nn_call_bf16, run in interpret mode on the CPU. On the
 CPU the wrappers run their plain torch versions; the CUDA kernels
 themselves are checked on the card by chip_smoke.py."""
 import os
+import shutil
 import subprocess
 import sys
 
@@ -226,11 +227,18 @@ def test_build_compiles_each_source_or_raises(tmp_path, monkeypatch,
                                               fail_on):
     """build() runs one compiler per source into BUILD_DIR and keeps each
     ptxas report; a failing source raises with its errors, and no
-    library or temporary file is left for it."""
+    library or temporary file is left for it. A library is rebuilt when
+    its source or a header that the source includes is newer, and only
+    then."""
     nvcc = tmp_path / 'nvcc'
     nvcc.write_text(_FAKE_NVCC)
     nvcc.chmod(0o755)
     out_dir = tmp_path / 'build'
+    csrc = tmp_path / 'csrc'          # copies, so that a header can age
+    shutil.copytree(os.path.dirname(nk.SOURCES['nn1']), csrc)
+    sources = {n: str(csrc / os.path.basename(s))
+               for n, s in nk.SOURCES.items()}
+    monkeypatch.setattr(nk, 'SOURCES', sources)
     monkeypatch.setattr(nk, 'BUILD_DIR', str(out_dir))
     monkeypatch.setattr(nk, '_nvcc', lambda: str(nvcc))
     monkeypatch.setenv('FAIL_ON', fail_on or 'no such source')
@@ -247,3 +255,20 @@ def test_build_compiles_each_source_or_raises(tmp_path, monkeypatch,
         assert 'registers' in (out_dir / f'lib{n}.ptxas.txt').read_text()
     stamp = os.path.getmtime(libs['nn1'])
     assert nk.build() == libs and os.path.getmtime(libs['nn1']) == stamp
+
+    # the bf16 source includes hopper.cuh, K1's source includes no header
+    header = str(csrc / 'hopper.cuh')
+    assert nk.source_files(sources['nn1_bf16']) == {sources['nn1_bf16'],
+                                                    header}
+    assert nk.source_files(sources['nn1']) == {sources['nn1']}
+    now = os.path.getmtime(libs['nn1'])
+    for path in list(sources.values()) + [header]:
+        os.utime(path, (now - 200, now - 200))
+    for so in libs.values():
+        os.utime(so, (now - 100, now - 100))
+    nk.build()                                  # nothing is newer
+    assert all(os.path.getmtime(so) == now - 100 for so in libs.values())
+    os.utime(header, (now - 50, now - 50))      # the header alone ages
+    nk.build()
+    assert os.path.getmtime(libs['nn1']) == now - 100
+    assert os.path.getmtime(libs['nn1_bf16']) > now - 50

@@ -8,7 +8,10 @@ It measures the time per variant and the winner-index agreement between
 the f32 and bf16 paths on PsyV features of random tiles (wavelet
 coefficients of YUV tiles, the stage-3 distribution), and the bf16
 kernel on features rounded to bf16 once (searching exactly in the
-rounded space) with its agreement.
+rounded space) with its agreement. Each candidate set is prepared once
+(nn_kernels.prepare, prepare_bf16) outside the timed batches, as an
+encoder prepares a keyframe's candidates once for all its query chunks;
+the prepare's own time is printed beside the per-batch time.
 
 Usage: python -m tiler_tpu_torch.tools.nn_prec_bench [n_c] [--device cuda]
   n_c   candidates (default 262144), rounded up to a multiple of 4096 as
@@ -41,16 +44,20 @@ def make_features(n: int, seed: int, dev: torch.device) -> torch.Tensor:
     return psyv_of_tiles(tiles, dev)
 
 
-def run_batches(fn, qs, c, dev) -> tuple[float, list]:
-    """One untimed warm-up call (it builds and loads the kernel), then
-    fn on every query batch: (mean ms, winner indices per batch)."""
-    fn(qs[0], c)
+def run_batches(fn, prepare, qs, c, dev) -> tuple[float, float, list]:
+    """Prepare the candidates c (one untimed call first: it builds and
+    loads the kernels; then one timed), one untimed warm-up call of fn,
+    then fn on every query batch against the prepared set: (mean ms per
+    batch, the prepare's ms, winner indices per batch)."""
+    prepare(c)
+    prep_ms, prep = time_ms(lambda: prepare(c), dev)
+    fn(qs[0], prep)
     times, winners = [], []
     for q in qs:
-        ms, (idx, _err) = time_ms(lambda: fn(q, c), dev)
+        ms, (idx, _err) = time_ms(lambda: fn(q, prep), dev)
         times.append(ms)
         winners.append(idx)
-    return float(np.mean(times)), winners
+    return float(np.mean(times)), prep_ms, winners
 
 
 def agreement(a: list, b: list) -> float:
@@ -75,24 +82,29 @@ def main(argv=None) -> dict:
 
     res = {'n_q': n_q, 'n_c': n_c, 'device': device_name(dev)}
     winners = {}
-    for name, fn in (('nn1_f32', nk.nearest_1),
-                     ('nn1_bf16', nk.nearest_1_bf16)):
-        ms, winners[name] = run_batches(fn, qs, cands, dev)
+    for name, fn, prepare in (
+            ('nn1_f32', nk.nearest_1, nk.prepare),
+            ('nn1_bf16', nk.nearest_1_bf16, nk.prepare_bf16)):
+        ms, prep_ms, winners[name] = run_batches(fn, prepare, qs, cands,
+                                                 dev)
         res[f'{name}_ms'] = ms
+        res[f'{name}_prepare_ms'] = prep_ms
         res[f'{name}_tflops'] = flops / (ms * 1e-3) / 1e12
-        print(f'{name}: {ms:8.1f} ms  {res[f"{name}_tflops"]:6.1f} TF/s',
-              flush=True)
+        print(f'{name}: {ms:8.2f} ms  {res[f"{name}_tflops"]:6.1f} TF/s  '
+              f'(prepare {prep_ms:.3f} ms)', flush=True)
     agree = agreement(winners['nn1_f32'], winners['nn1_bf16'])
     res['agree_f32_bf16'] = agree
     print(f'winner agreement f32 vs bf16: {agree * 100:.4f}%', flush=True)
 
     # bf16-rounded features on both sides: round once, search exactly in
     # the rounded space (the quality-neutral variant)
-    ms, rounded = run_batches(nk.nearest_1_bf16,
-                              [nk.bf16_round(q) for q in qs],
-                              nk.bf16_round(cands), dev)
+    ms, prep_ms, rounded = run_batches(
+        nk.nearest_1_bf16, nk.prepare_bf16, [nk.bf16_round(q) for q in qs],
+        nk.bf16_round(cands), dev)
     res['nn1_bf16_rounded_ms'] = ms
-    print(f'nn1_bf16_rounded: {ms:8.1f} ms', flush=True)
+    res['nn1_bf16_rounded_prepare_ms'] = prep_ms
+    print(f'nn1_bf16_rounded: {ms:8.2f} ms  (prepare {prep_ms:.3f} ms)',
+          flush=True)
     agree = agreement(winners['nn1_f32'], rounded)
     res['agree_f32_bf16_rounded'] = agree
     print(f'winner agreement f32 vs bf16-rounded: {agree * 100:.4f}%',

@@ -28,6 +28,17 @@ JSON line; any failure raises and exits non-zero):
         K1's launches in the timed run equal to the stage-3 1-NN calls
         and the prepare's equal to the keyframes;
      d. the same clip with Yliluoma + VAR, encoded once;
+     e. the other entry points on that clip (3 GOPs): encode_streaming
+        and encode_gop_sharded(n_hosts=1) write the same bytes, with K1's
+        launches equal to the GOPs' stage-3 calls and one prepare a GOP,
+        and the peak device memory beside the batch encode's; a
+        checkpoint after GlobalTiling, loaded again, resumes at
+        FrameTiling to the uninterrupted run's bytes; both torch
+        renderers decode the 1080p stream to the numpy decoder's frames;
+        render.reconstruction_psnr equals the decoded stream's PSNR; the
+        CLI in child processes on the small clip: an injected crash
+        (exit 13) and its resumed rerun, info, transcode and
+        encode --stream;
   5. decode: both 1080p streams through the package's numpy decoder,
      each with PSNR >= 29 dB.
 The last three lines are the kernels' JSON record, the card's name and
@@ -38,8 +49,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -645,6 +658,231 @@ def check_configs() -> None:
                                      f'{prepares} prepare launches')
 
 
+def _counts_zero() -> None:
+    from tiler_tpu_torch.ops import nn_kernels as nk
+    nk.LAUNCHES = nk.LAUNCHES_PREP = 0
+
+
+def _counts() -> dict:
+    from tiler_tpu_torch.ops import nn_kernels as nk
+    return {'nn1': nk.LAUNCHES, 'nn1_prepare': nk.LAUNCHES_PREP}
+
+
+def check_streaming(frames, cfg, card: str, batch: dict, tmp: str) -> dict:
+    """Path e, the streaming and the GOP-sharded encode of the 1080p clip
+    on the card: equal bytes, fewer than all frames buffered, K1 launched
+    once per stage-3 call and the prepare once per GOP, PSNR at the
+    floor; wall, bytes, PSNR and peak device memory printed beside the
+    batch encode's. Returns the streaming run's launch counts."""
+    import torch
+
+    from tiler_tpu_torch.decode import decode_video
+    from tiler_tpu_torch.ops.stats import psnr
+    from tiler_tpu_torch.parallel.distributed import encode_gop_sharded
+    from tiler_tpu_torch.pipeline.stream import encode_streaming
+    path = os.path.join(tmp, 'stream.gtm')
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zero()
+    t0 = time.perf_counter()
+    m = encode_streaming(iter(frames), cfg, path, fps=24, fast_lzma=True,
+                         chunk=4, device='cuda')
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(path, 'rb') as fh:
+        blob = fh.read()
+    decoded, stream = decode_video(blob)
+    p = psnr(decoded, frames)
+    say('streaming', card=card, wall_s=wall, fps=len(frames) / wall,
+        psnr=p, tiles=len(stream.tiles), max_memory_allocated=peak,
+        launches=counts, batch=batch, **m)
+    if m['gtm_bytes'] != len(blob):
+        raise AssertionError(f'streaming: {m["gtm_bytes"]} bytes reported, '
+                             f'{len(blob)} written')
+    if m['max_buffered_frames'] >= len(frames):
+        raise AssertionError(f'streaming buffered {m["max_buffered_frames"]} '
+                             f'of {len(frames)} frames')
+    if counts['nn1'] <= 0 or counts['nn1'] != sum(m['ft_nn_calls']) or \
+            counts['nn1_prepare'] != m['n_keyframes']:
+        raise AssertionError(f'streaming: launches {counts} against stage-3 '
+                             f'calls {m["ft_nn_calls"]} in '
+                             f'{m["n_keyframes"]} GOPs')
+    if decoded.shape != frames.shape or not p >= PSNR_FLOOR:
+        raise AssertionError(f'streaming: {decoded.shape}, {p} dB')
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _counts_zero()
+    t0 = time.perf_counter()
+    sharded = encode_gop_sharded(frames, cfg, n_hosts=1, fps=24,
+                                 fast_lzma=True, device='cuda')
+    wall = time.perf_counter() - t0
+    say('gop_sharded', card=card, wall_s=wall, gtm_bytes=len(sharded),
+        same_bytes=sharded == blob, launches=_counts(),
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    if sharded != blob:
+        raise AssertionError('streaming file != encode_gop_sharded bytes')
+    if _counts() != counts:
+        raise AssertionError(f'GOP-sharded launches {_counts()} != the '
+                             f"streaming encode's {counts}")
+    return counts
+
+
+def check_resume(frames, cfg, card: str, want: bytes, tmp: str) -> None:
+    """Path e, checkpoint and resume on the card: run to GlobalTiling,
+    save, load into a new Encoder that starts at FrameTiling; its stream
+    equals the uninterrupted run's bytes."""
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    from tiler_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                  load_checkpoint,
+                                                  save_checkpoint)
+    path = os.path.join(tmp, 'state')
+    first = Encoder(dataclasses.replace(cfg, end_step='global_tiling'),
+                    device='cuda')
+    first.run_all(frames, fps=24, fast_lzma=True)
+    dev_tiles = first.state.device_tiles_pal()
+    t0 = time.perf_counter()
+    save_checkpoint(path, first.state)
+    save_s = time.perf_counter() - t0
+    if first.state.device_tiles_pal() is not dev_tiles:
+        raise AssertionError('saving dropped the device tiles')
+    del first, dev_tiles
+    t0 = time.perf_counter()
+    state = load_checkpoint(path, 'cuda')
+    load_s = time.perf_counter() - t0
+    rest = dataclasses.replace(cfg, start_step='frame_tiling')
+    enc = Encoder(rest, device='cuda')
+    state.config = rest
+    enc.state = state
+    _counts_zero()
+    t0 = time.perf_counter()
+    blob = enc.run_all(state.frames_rgb, fps=state.fps, fast_lzma=True)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    say('checkpoint_resume', card=card, save_s=save_s, load_s=load_s,
+        checkpoint_bytes=os.path.getsize(checkpoint_path(path)),
+        resumed_wall_s=wall, same_bytes=blob == want, launches=counts,
+        step_times={k: enc.state.step_times[k]
+                    for k in ('frame_tiling', 'reindex', 'smooth', 'save')})
+    if blob != want:
+        raise AssertionError('resumed stream != uninterrupted stream')
+    if counts['nn1'] != enc.state.metrics['ft_nn_calls'] or \
+            counts['nn1_prepare'] != enc.state.metrics['n_keyframes']:
+        raise AssertionError(f'resumed encode: launches {counts}')
+
+
+def check_renderers(blob: bytes, enc, frames, card: str) -> None:
+    """Path e, decode and render: both torch renderers on the card give
+    the numpy decoder's frames byte for byte (each timed twice: the first
+    call also sets the card's allocations up; all three include the LZMA
+    decode and the command walk, timed alone as parse_only), and the
+    preview renderer's
+    PSNR from the encoder state equals the decoded stream's to 1e-6."""
+    import torch
+
+    from tiler_tpu_torch import render
+    from tiler_tpu_torch.decode import (decode_video, decode_video_torch,
+                                        decode_video_torch_scan)
+    from tiler_tpu_torch.bitstream.gtm import parse_gtm
+    from tiler_tpu_torch.decode import interpret_commands
+    from tiler_tpu_torch.ops.stats import psnr
+    times = {}
+
+    def timed(name, fn):
+        out = None
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+    timed('parse_only', lambda: interpret_commands(parse_gtm(blob)))
+    want = timed('numpy', lambda: decode_video(blob)[0])
+    per_frame = timed('torch', lambda: decode_video_torch(blob, 'cuda'))
+    scan = timed('torch_scan', lambda: decode_video_torch_scan(blob, 'cuda'))
+    same = {'torch': per_frame.tobytes() == want.tobytes(),
+            'torch_scan': scan.tobytes() == want.tobytes()}
+    t0 = time.perf_counter()
+    p_state = render.reconstruction_psnr(enc.state)
+    render_s = time.perf_counter() - t0
+    p_stream = psnr(want, frames)
+    say('renderers', card=card, frames=len(want), seconds=times, same=same,
+        psnr_state=p_state, psnr_stream=p_stream, render_s=render_s)
+    if not all(same.values()):
+        raise AssertionError(f'torch renderer != numpy decoder: {same}')
+    if abs(p_state - p_stream) > 1e-6:
+        raise AssertionError(f'reconstruction_psnr {p_state} != decoded '
+                             f'{p_stream}')
+
+
+def check_cli(card: str, tmp: str) -> None:
+    """Path e, the command line in child processes on the small clip, on
+    the card: a crash injected after GlobalTiling exits 13 and leaves the
+    checkpoint; the rerun resumes at FrameTiling, removes it and writes
+    the bytes of an uninterrupted encode; then info, transcode (decodes
+    to the same frames) and encode --stream."""
+    from tiler_tpu_torch.decode import decode_video
+    from tiler_tpu_torch.tools.common import synthetic_clip_v2
+    root = os.path.dirname(os.path.abspath(__file__))
+    clip = os.path.join(tmp, 'clip.npy')
+    np.save(clip, synthetic_clip_v2(8, 120, 160))
+    flags = ['--device', 'cuda', '--palette-count', '16', '--max-tiles',
+             '400', '--fast-lzma']
+    seconds = {}
+
+    def cli(name, *argv, code=0, **env):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, '-m', 'tiler_tpu_torch', *argv],
+            capture_output=True, text=True, cwd=root, timeout=300,
+            env=dict(os.environ, PYTHONPATH=root, **env))
+        seconds[name] = time.perf_counter() - t0
+        if out.returncode != code:
+            raise AssertionError(f'CLI {name}: exit {out.returncode}, '
+                                 f'{out.stderr[-2000:]}')
+        return out.stdout
+
+    def path(name):
+        return os.path.join(tmp, name)
+
+    def read(name):
+        with open(path(name), 'rb') as fh:
+            return fh.read()
+    cli('encode', 'encode', clip, path('ref.gtm'), *flags)
+    auto = ['encode', clip, path('crash.gtm'), *flags, '--auto-checkpoint',
+            path('auto')]
+    out = cli('crash', *auto, code=13, TILER_CRASH_AFTER_STEP='global_tiling')
+    if "injected crash after 'global_tiling'" not in out or \
+            not os.path.exists(path('auto.npz')) or \
+            os.path.exists(path('crash.gtm')):
+        raise AssertionError(f'CLI crash left {sorted(os.listdir(tmp))}')
+    out = cli('resume', *auto)
+    if "resuming at step 'frame_tiling'" not in out or \
+            os.path.exists(path('auto.npz')):
+        raise AssertionError('CLI rerun did not resume at frame_tiling')
+    same = read('crash.gtm') == read('ref.gtm')
+    info = json.loads(cli('info', 'info', path('ref.gtm')).splitlines()[-1])
+    cli('transcode', 'transcode', path('ref.gtm'), path('lc3.gtm'),
+        '--lzma-mode', 'lc3')
+    want = decode_video(read('ref.gtm'))[0]
+    same_frames = decode_video(read('lc3.gtm'))[0].tobytes() == want.tobytes()
+    out = cli('stream', 'encode', clip, path('s.gtm'), *flags, '--stream')
+    streamed = json.loads(out.splitlines()[-1])
+    say('cli', card=card, seconds=seconds, resumed_same_bytes=same,
+        info=info, transcode_same_frames=same_frames,
+        lc3_bytes=len(read('lc3.gtm')), stream=streamed)
+    if not same:
+        raise AssertionError('CLI resumed stream != uninterrupted stream')
+    if info['frames'] != 8 or (info['width'], info['height']) != (160, 120):
+        raise AssertionError(f'CLI info: {info}')
+    if not same_frames:
+        raise AssertionError('CLI transcode changed the decoded frames')
+    if streamed['n_frames'] != 8 or \
+            decode_video(read('s.gtm'))[0].shape != want.shape:
+        raise AssertionError(f'CLI encode --stream: {streamed}')
+
+
 def encode(frames, cfg, device):
     from tiler_tpu_torch.pipeline.encoder import Encoder
     enc = Encoder(cfg, device=device)
@@ -685,10 +923,13 @@ def main() -> int:
     cfg = EncoderConfig(palette_count=128, tile_palette_size=16)
     _, _, warm_s = encode(frames, cfg, 'cuda')
     torch.cuda.reset_peak_memory_stats()
-    _, blob, counts = encode_counted(frames, cfg, 'slice', card,
-                                     warm_s=warm_s)
+    enc, blob, counts = encode_counted(frames, cfg, 'slice', card,
+                                       warm_s=warm_s)
     record['launches'], prep['launches'] = counts['nn1'], counts['nn1_prepare']
     decoded, stream = decode_video(blob)
+    batch = {'wall_s': sum(enc.state.step_times.values()),
+             'gtm_bytes': len(blob), 'tiles': len(stream.tiles),
+             'max_memory_allocated': torch.cuda.max_memory_allocated()}
     if decoded.shape != frames.shape:
         raise AssertionError(f'decoded {decoded.shape} != {frames.shape}')
     p = psnr(decoded, frames)
@@ -696,6 +937,17 @@ def main() -> int:
         height=stream.height, psnr=p)
     if not p >= PSNR_FLOOR:
         raise AssertionError(f'PSNR {p} dB < {PSNR_FLOOR}')
+    batch['psnr'] = p
+    del decoded
+
+    with tempfile.TemporaryDirectory() as tmp:
+        check_renderers(blob, enc, frames, card)
+        del enc
+        counts = check_streaming(frames, cfg, card, batch, tmp)
+        record['launches_streaming'] = counts['nn1']
+        prep['launches_streaming'] = counts['nn1_prepare']
+        check_resume(frames, cfg, card, blob, tmp)
+        check_cli(card, tmp)
 
     cfg_yv = dataclasses.replace(cfg, use_thomas_knoll=False, use_dl3=False)
     _, blob, _ = encode_counted(frames, cfg_yv, 'slice_yliluoma_var', card)

@@ -43,7 +43,8 @@ _NONE_LOADED = (
 
 
 def _run(code):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one thread: the shapes are tiny and test processes share the cores
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
     return subprocess.run([sys.executable, '-c', code], capture_output=True,
                           text=True, env=env, cwd=REPO, timeout=600)
 
@@ -61,7 +62,25 @@ def test_every_module_imports_with_jax_package_blocked():
         "print(len(names))\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 30
+    names = out.stdout.strip().splitlines()[-1]
+    assert int(names) >= 36
+
+
+def test_new_modules_are_walked_and_import_no_jax():
+    """The modules of the later slice are in the package walk above, and
+    PIL is not loaded by importing them (it is reached inside the
+    functions that read or write PNGs)."""
+    mods = ['player', 'render', 'utils.checkpoint', 'parallel.distributed',
+            'pipeline.stream', 'pipeline.load', 'decode', '__main__']
+    code = _BLOCK + (
+        "import importlib\n"
+        f"for n in {mods!r}:\n"
+        "    importlib.import_module('tiler_tpu_torch.' + n)\n"
+        + _NONE_LOADED +
+        "assert 'PIL' not in sys.modules\n"
+        "print('ok')\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
 
 
 def test_cli_encodes_and_decodes_with_jax_package_blocked(tmp_path):
@@ -79,12 +98,34 @@ def test_cli_encodes_and_decodes_with_jax_package_blocked(tmp_path):
         f"cli('encode', {str(clip)!r}, {gtm!r}, '--device', 'cpu', "
         "'--palette-count', '8', '--max-tiles', '100', '--fast-lzma')\n"
         f"cli('decode', {gtm!r}, {dec!r})\n"
+        f"cli('info', {gtm!r})\n"
+        f"cli('transcode', {gtm!r}, {gtm + '.lc3'!r}, '--lzma-mode', 'lc3')\n"
+        f"cli('encode', {str(clip)!r}, {gtm + '.s'!r}, '--device', 'cpu', "
+        "'--palette-count', '8', '--max-tiles', '100', '--fast-lzma', "
+        "'--stream')\n"
+        f"cli('encode', {str(clip)!r}, {gtm + '.r'!r}, '--device', 'cpu', "
+        "'--palette-count', '8', '--max-tiles', '100', '--fast-lzma', "
+        f"'--checkpoint', {gtm + '.ck'!r})\n"
+        f"cli('preview', {gtm + '.ck'!r}, {gtm + '.pv'!r}, '--device', "
+        "'cpu')\n"
+        "cli('debug', '--device', 'cpu')\n"
+        "from tiler_tpu_torch.decode import decode_video_torch_scan\n"
+        "from tiler_tpu_torch.player import GTMPlayer\n"
+        f"data = open({gtm!r}, 'rb').read()\n"
+        "assert len(list(GTMPlayer(data).frames())) == 4\n"
+        "assert decode_video_torch_scan(data, 'cpu').shape[0] == 4\n"
         + _NONE_LOADED)
     out = _run(code)
     assert out.returncode == 0, out.stderr
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith('{')]
     assert json.loads(lines[0])['psnr'] > 15
     assert json.loads(lines[1])['frames'] == 4
+    assert json.loads(lines[2])['frames'] == 4          # info
+    assert json.loads(lines[3])['mode'] == 'lc3'        # transcode
+    assert json.loads(lines[4])['n_frames'] == 4        # encode --stream
+    assert open(gtm + '.r', 'rb').read() == open(gtm, 'rb').read()
+    assert 'output' in json.loads(lines[6])             # preview
+    assert sorted(os.listdir(gtm + '.pv'))[0] == 'output_0.png'
     assert np.load(dec).shape == (4, 64, 96, 3)
 
 
@@ -249,6 +290,66 @@ def test_native_lzma_and_dither_outputs():
         jnative.fs_posterize(frame, 5).tobytes()
     assert pnative.fs_tile(frame[:8, :8], 4).tobytes() == \
         jnative.fs_tile(frame[:8, :8], 4).tobytes()
+
+
+def _own(mod):
+    """The functions and classes a module defines itself."""
+    return {k: v for k, v in vars(mod).items()
+            if (inspect.isfunction(v) or inspect.isclass(v))
+            and v.__module__ == mod.__name__}
+
+
+# (JAX module, port module, names whose source is the original's,
+#  names that differ: they take a device or use torch)
+_COPIES = [
+    ('decode', 'decode',
+     ['FrameOps', 'DecodedStream', 'interpret_commands', '_interpret_native',
+      'CommandInterpreter', 'interpret_commands_py', '_blit_cells_numpy',
+      '_blit_cells_blocked', 'blocks_to_image', 'decode_video'], []),
+    ('player', 'player', ['GTMPlayer'], []),
+    ('render', 'render',
+     ['render_frame', 'render_tiles_page', 'render_palette_strip',
+      'reconstruction_correlation', 'reconstruction_psnr'], []),
+    ('pipeline.load', 'pipeline.load',
+     ['ffmpeg_args', 'parse_ffmpeg_fps', 'frames_from_video',
+      'ffmpeg_rawvideo_args', 'open_video_stream', 'sorted_frame_paths',
+      'frames_from_pngs', 'split_into_tiles'],
+     ['keyframes_from_correlations', 'detect_keyframes', 'run_load']),
+    ('pipeline.stream', 'pipeline.stream',
+     ['OnlineKeyframeDetector', '_stream_driver', '_kf_info',
+      'iter_frames_npy', 'iter_frames_pngs'],
+     ['_encode_gop', 'encode_streaming', '_encode_streaming_reload']),
+    ('parallel.distributed', 'parallel.distributed',
+     ['assign_gops_to_hosts'],
+     ['encode_gop_sharded', 'encode_gop_partition']),
+    ('utils.checkpoint', 'utils.checkpoint', ['checkpoint_path'],
+     ['save_checkpoint', 'load_checkpoint']),
+]
+
+
+@pytest.mark.parametrize('jname,pname,same,ported', _COPIES,
+                         ids=[c[0] for c in _COPIES])
+def test_copied_functions_are_the_originals(jname, pname, same, ported):
+    """Host code that the port keeps as a copy has the original's source,
+    name by name; what was ported (a device argument, torch) is there
+    under the same name."""
+    import importlib
+    jmod = importlib.import_module('tiler_tpu.' + jname)
+    pmod = importlib.import_module('tiler_tpu_torch.' + pname)
+    theirs, mine = _own(jmod), _own(pmod)
+    for name in same:
+        assert inspect.getsource(mine[name]) == \
+            inspect.getsource(theirs[name]), name
+    for name in ported:
+        assert name in mine and name in theirs, name
+    # nothing of the original is missing but what waits for the
+    # multi-device part of the port or is the JAX renderer itself
+    missing = set(theirs) - set(mine)
+    assert missing <= {'make_jax_renderer', 'decode_video_jax_scan',
+                       'decode_video_jax', 'init_distributed'}, missing
+    if jname == 'decode':
+        assert {'render_step', 'decode_video_torch',
+                'decode_video_torch_scan'} <= set(mine)
 
 
 def test_compute_reindex_is_the_original():

@@ -1,12 +1,14 @@
-"""tiler_tpu_torch: the GTM encoder's single-device path in PyTorch, for
+"""tiler_tpu_torch: the GTM codec's single-device package in PyTorch, for
 one NVIDIA H100 (sm_90a), beside the JAX package tiler_tpu that it is
-held against.
+held against: the encoder, checkpoint and resume, ingestion, the
+streaming and the in-process GOP-sharded encode, the decoders, the
+player, the preview renderer and the command line.
 
 It mirrors tiler_tpu's layout and names and stands alone: it imports
 torch and numpy, never jax and nothing of tiler_tpu. What the two have
 in common (config, constants, bitstream, the native C++ library, the
-numpy decoder, progress, reindex order and the Save writer) it keeps as
-its own copies, held byte-exact against the originals by the tests. The
+numpy decoder, the player, the preview renderer, ingestion, progress,
+reindex order and the Save writer) it keeps as its own copies, held byte-exact against the originals by the tests. The
 CUDA kernels and the C++ library are built at first use into
 build/tiler_tpu_torch/ at the repository root. Exact argmins downstream of
 the PsyV, k-means and 1-NN matmuls need full float32, so TF32 is turned

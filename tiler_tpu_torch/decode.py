@@ -7,8 +7,10 @@ mirroring, SkipBlock leaving previous pixels intact, palettes reloadable per
 keyframe. The renderer here is a batched gather: for all drawn cells of a
 frame, rgb = palette[attrs>>2][tile_pixels] with mirror flips applied as
 array reversals — one fused gather instead of the player's per-pixel blit
-loops (gtm.player.js:182-251). This is the numpy decoder; a renderer on
-the card is not ported yet.
+loops (gtm.player.js:182-251). The first half of the module is the numpy
+decoder, kept equal to tiler_tpu/decode.py; the second half renders on a
+torch device (decode_video_torch, decode_video_torch_scan), the
+counterparts of that module's JAX renderers.
 """
 from __future__ import annotations
 
@@ -249,3 +251,106 @@ def decode_video(data: bytes) -> tuple[np.ndarray, DecodedStream]:
         _blit_cells_blocked(blocks, stream, ops)
         out[f] = blocks_to_image(blocks, th, tw)
     return out, stream
+
+
+# ---------------------------------------------------------------------------
+# torch renderer: per-frame scatter of drawn blocks, carried canvas state.
+# ---------------------------------------------------------------------------
+
+def render_step(canvas_blocks, tiles, palettes, pos, tile_idx, attrs):
+    """Draw one frame's cells on the device: canvas_blocks [cells,8,8,3]
+    uint8 (updated in place and returned), tiles [N,8,8] uint8, palettes
+    [256,S,3] uint8, and the draw list pos/tile_idx/attrs [n] integer
+    tensors. The lists are passed at their own length: torch's scatter
+    has no drop mode, so no padding row is ever built."""
+    import torch
+    tpix = tiles[tile_idx.long()]                       # [n, 8, 8] uint8
+    hm = (attrs & 1).bool()
+    vm = (attrs & 2).bool()
+    tpix = torch.where(hm[:, None, None], tpix.flip(2), tpix)
+    tpix = torch.where(vm[:, None, None], tpix.flip(1), tpix)
+    pal = palettes[(attrs >> 2).long()]                 # [n, S, 3]
+    rgb = torch.take_along_dim(
+        pal, tpix.reshape(tpix.shape[0], TILE_W * TILE_W, 1).long(), dim=1
+    ).reshape(tpix.shape[0], TILE_W, TILE_W, 3)
+    canvas_blocks[pos.long()] = rgb
+    return canvas_blocks
+
+
+def _blocks_to_image_torch(blocks, th: int, tw: int):
+    """blocks_to_image on a tensor [..., th*tw, 8, 8, 3], on its device,
+    so that what comes down is already the image."""
+    lead = blocks.shape[:-4]
+    n = len(lead)
+    x = blocks.reshape(*lead, th, tw, TILE_W, TILE_W, 3)
+    x = x.permute(*range(n), n, n + 2, n + 1, n + 3, n + 4)
+    return x.reshape(*lead, th * TILE_W, tw * TILE_W, 3)
+
+
+def decode_video_torch_scan(data: bytes, device='cuda') -> np.ndarray:
+    """Whole-video device render with ONE upload of the draw lists and ONE
+    download of the frames.
+
+    Every frame's draw list goes up in one flat array (each frame reads
+    its own slice, so nothing is padded); a host loop enqueues the
+    frames' gathers with no synchronize between them into one
+    [F, cells, 8, 8, 3] uint8 tensor, each frame starting from the one
+    before it (SkipBlock cells keep previous content by construction),
+    and the stacked canvases, laid out as images on the device, come down
+    once."""
+    import torch
+
+    from .pipeline.encoder import resolve_device
+    dev = resolve_device(device)
+    stream = interpret_commands(parse_gtm(data))
+    th, tw = stream.tilemap_h, stream.tilemap_w
+    cells = th * tw
+    f = len(stream.frames)
+    if f == 0:
+        return np.zeros((0, stream.height, stream.width, 3), np.uint8)
+    counts = [ops.positions.size for ops in stream.frames]
+    ends = np.cumsum(counts)
+    lists = np.stack([
+        np.concatenate([getattr(ops, name) for ops in stream.frames])
+        for name in ('positions', 'tile_idx', 'attrs')]).astype(np.int32)
+    lists_d = torch.from_numpy(lists).to(dev)
+    pals_d = torch.from_numpy(np.stack(
+        [ops.palettes[..., :3] for ops in stream.frames])).to(dev)
+    tiles_d = torch.from_numpy(np.ascontiguousarray(stream.tiles)).to(dev)
+    out = torch.zeros((f, cells, TILE_W, TILE_W, 3), dtype=torch.uint8,
+                      device=dev)
+    for i in range(f):
+        if i:
+            out[i].copy_(out[i - 1])
+        lo, hi = int(ends[i]) - counts[i], int(ends[i])
+        render_step(out[i], tiles_d, pals_d[i], lists_d[0, lo:hi],
+                    lists_d[1, lo:hi], lists_d[2, lo:hi])
+    return _blocks_to_image_torch(out, th, tw).cpu().numpy()
+
+
+def decode_video_torch(data: bytes, device='cuda') -> np.ndarray:
+    """Decode with the device scatter renderer, one frame at a time: each
+    frame's draw list goes up and its canvas comes down, as a player
+    would show it. Returns frames [F,H,W,3]."""
+    import torch
+
+    from .pipeline.encoder import resolve_device
+    dev = resolve_device(device)
+    stream = interpret_commands(parse_gtm(data))
+    th, tw = stream.tilemap_h, stream.tilemap_w
+    cells = th * tw
+    tiles_d = torch.from_numpy(np.ascontiguousarray(stream.tiles)).to(dev)
+    canvas = torch.zeros((cells, TILE_W, TILE_W, 3), dtype=torch.uint8,
+                         device=dev)
+    out = np.zeros((len(stream.frames), stream.height, stream.width, 3),
+                   np.uint8)
+    for i, ops in enumerate(stream.frames):
+        canvas = render_step(
+            canvas, tiles_d,
+            torch.from_numpy(np.ascontiguousarray(
+                ops.palettes[..., :3])).to(dev),
+            torch.from_numpy(ops.positions).to(dev),
+            torch.from_numpy(ops.tile_idx).to(dev),
+            torch.from_numpy(ops.attrs).to(dev))
+        out[i] = _blocks_to_image_torch(canvas, th, tw).cpu().numpy()
+    return out

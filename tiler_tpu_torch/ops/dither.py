@@ -10,7 +10,9 @@ luma, from which each pixel picks entry (bayer * count) >> 6. Plans
 depend only on (palette, colour), so the cached forms compute one plan
 per unique (palette group, colour) key and gather it per pixel. All
 integer math, so the results are byte-identical to the JAX package on
-any device.
+any device. The two Floyd-Steinberg posterizers (used below 8 bits per
+component) are host code: the package's C++ library, with the Python
+loops as the fallback without a compiler.
 """
 from __future__ import annotations
 
@@ -249,3 +251,77 @@ def yliluoma_dither_tiles_cached(tiles_rgb: torch.Tensor,
             plans[rows].to(torch.int64), counts[rows].to(torch.int64),
             bayer).to(torch.uint8)
     return out.reshape(n, TILE_W, TILE_W)
+
+
+def dither_tile_floyd_steinberg(tile_rgb: np.ndarray,
+                                bits_per_comp: int = 8) -> np.ndarray:
+    """Per-tile FS error diffusion with edge-clamped borders
+    (DitherTileFloydSteinberg, main.pas:1877-1929). Used by the VAR
+    quantizer's histogram when cBitsPerComp < 8."""
+    from .. import native
+    if native.available():
+        return native.fs_tile(tile_rgb, bits_per_comp)
+    cvt_pre = (1 << bits_per_comp) - 1
+    cvt_post = 256 // cvt_pre
+    px = np.zeros((TILE_W + 2, TILE_W + 2, 3), np.int64)
+    px[1:9, 1:9] = tile_rgb
+    px[1:9, 0] = px[1:9, 1]
+    px[1:9, 9] = px[1:9, 8]
+    px[0] = px[1]
+    px[9] = px[8]
+    for y in range(1, TILE_W + 1):
+        for x in range(1, TILE_W + 1):
+            for c in range(3):
+                old = px[y, x, c]
+                new = min(255, ((old * cvt_pre) // 255) * cvt_post)
+                err = old - new
+                px[y, x, c] = new
+                px[y, x + 1, c] += (err * 7) >> 4
+                px[y + 1, x - 1, c] += (err * 3) >> 4
+                px[y + 1, x, c] += (err * 5) >> 4
+                px[y + 1, x + 1, c] += (err * 1) >> 4
+    return np.minimum(px[1:9, 1:9], 255).astype(np.uint8)
+
+
+def floyd_steinberg_posterize(frame_rgb: np.ndarray,
+                              bits_per_comp: int = 8) -> np.ndarray:
+    """Whole-frame serpentine-free FS error diffusion to bits_per_comp
+    (DitherFloydSteinberg, main.pas:1966-1996).
+
+    At the default cBitsPerComp=8 Posterize() is the identity and the error
+    is always zero, so this returns the input unchanged. Below 8 bits the
+    C++ library runs (the Python loop here is the oracle-tested fallback;
+    ~2M interpreter steps per 1080p frame).
+
+    Border semantics follow the reference exactly: at the last column/row
+    the neighbor offsets collapse to 0, so the quantization error is added
+    onto the just-written pixel itself (and onto already-processed
+    neighbors on the last row), clamped 0..255 (main.pas:1976-1992).
+    """
+    if bits_per_comp >= 8:
+        return frame_rgb
+    from .. import native
+    if native.available():
+        return native.fs_posterize(frame_rgb, bits_per_comp)
+    h, w, _ = frame_rgb.shape
+    cvt_pre = (1 << bits_per_comp) - 1
+    cvt_post = 256 // cvt_pre
+    px = frame_rgb.astype(np.int32).reshape(-1).copy()
+    stride = w * 3
+    p = 0
+    for y in range(h):
+        for x in range(w):
+            ypo = stride if y < h - 1 else 0
+            xpo = 3 if x < w - 1 else 0
+            xmo = -3 if x > 0 else 0
+            for c in range(3):
+                old = px[p]
+                new = min(255, ((old * cvt_pre) // 255) * cvt_post)
+                err = old - new
+                px[p] = new
+                for off, fac in ((xpo, 7), (ypo + xmo, 3), (ypo, 5),
+                                 (ypo + xpo, 1)):
+                    v = px[p + off] + ((err * fac) >> 4)
+                    px[p + off] = 0 if v < 0 else (255 if v > 255 else v)
+                p += 1
+    return px.reshape(h, w, 3).astype(np.uint8)

@@ -28,6 +28,23 @@ def _color_compare_scalar(rgb1, rgb2) -> int:
         + lumadiff * lumadiff * 32
 
 
+DL3_BIN_CAP = 4096
+
+
+def dl3_palette(pixels_rgb: np.ndarray, palette_size: int,
+                bpc: int = 7, bin_cap: int = DL3_BIN_CAP) -> np.ndarray:
+    """DL3 palette of the given pixels ([...,3] uint8). Returns
+    [palette_size, 3] uint8; as in DoDennisLeeV3, entries beyond the
+    distinct histogram bins stay black. Above `bin_cap` distinct bins the
+    rare ones are merged into their nearest frequent bin before the
+    exact greedy runs (bin_cap 0: no cap)."""
+    if pixels_rgb.size == 0:
+        return np.zeros((palette_size, 3), np.uint8)
+    pal, _n = native.dl3_quant_capped(pixels_rgb.reshape(-1, 3),
+                                      palette_size, bpc, bin_cap)
+    return pal
+
+
 def dl3_palette_tiles(tiles_rgb: np.ndarray, sel: np.ndarray,
                       palette_size: int, bpc: int, bin_cap: int
                       ) -> np.ndarray:

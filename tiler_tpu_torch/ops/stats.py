@@ -1,8 +1,20 @@
-"""Shot-detection correlations and PSNR: the counterpart of
-tiler_tpu/ops/stats.py (its host half is re-homed unchanged)."""
+"""Pearson correlation, shot-detection correlations and PSNR: the
+counterpart of tiler_tpu/ops/stats.py, on the host in numpy."""
 from __future__ import annotations
 
 import numpy as np
+
+
+def pearson(x: np.ndarray, y: np.ndarray) -> float:
+    """PearsonCorrelation (main.pas:1465-1492) on flat arrays, in float32
+    as the JAX package computes it; 0 when either side is constant."""
+    x = np.asarray(x).astype(np.float32).ravel()
+    y = np.asarray(y).astype(np.float32).ravel()
+    xm = x - np.mean(x)
+    ym = y - np.mean(y)
+    num = np.sum(xm * ym)
+    den = np.sqrt(np.sum(xm * xm)) * np.sqrt(np.sum(ym * ym))
+    return 0.0 if den == 0 else float(num / den)
 
 
 def interframe_correlations_host(frames_u8: np.ndarray) -> np.ndarray:

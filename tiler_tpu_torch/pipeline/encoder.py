@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..config import EncoderConfig
-from ..constants import ENCODER_STEPS
+from ..constants import ENCODER_STEPS, equal_quality_tile_count
 from ..utils.progress import StepProgress
 
 from .state import EncoderState
@@ -74,6 +74,13 @@ class Encoder:
         return self._timed('save', run_save, self.state, fast_lzma)
 
     # -- drivers ------------------------------------------------------------
+
+    def max_tiles(self) -> int:
+        cfg = self.config
+        raw = self.state.n_frames * self.state.tilemap_size
+        if cfg.max_tiles > 0:
+            return min(cfg.max_tiles, raw)
+        return min(round(cfg.qb_tiles * equal_quality_tile_count(raw)), raw)
 
     def run_all(self, frames: np.ndarray, fps: float | None = None,
                 fast_lzma: bool = False, step_hook=None) -> bytes:

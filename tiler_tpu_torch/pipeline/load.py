@@ -1,24 +1,187 @@
-"""Load step: tile split, keyframe detection and the temporal changed
-mask — the counterpart of tiler_tpu/pipeline/load.py (in-memory frames;
-ffmpeg ingestion is not ported yet).
+"""Load step: ingestion (ffmpeg, PNG sequences), tile split, FS
+posterize, keyframe detection and the temporal changed mask — the
+counterpart of tiler_tpu/pipeline/load.py.
 
-Everything here is host numpy and byte-identical to the JAX package; the
-frames go to the device once, when the first step needs the source
+Everything here is host code and byte-identical to the JAX package
+(ffmpeg and PIL are reached only inside the functions that need them);
+the frames go to the device once, when the first step needs the source
 tiles (EncoderState.device_source_tiles).
 """
 from __future__ import annotations
 
+import glob
+import os
+import shutil
+import subprocess
+import tempfile
+
 import numpy as np
 
-from ..constants import (BITS_PER_COMP, MAX_TILEMAP_H,
-                                 MAX_TILEMAP_W, SHOT_TRANS_AVG_FRAMES,
-                                 SHOT_TRANS_GRACE_PERIOD,
-                                 SHOT_TRANS_HARD_THRES,
-                                 SHOT_TRANS_MAX_TILES_PER_KF,
-                                 SHOT_TRANS_SOFT_THRES, TILE_W)
-
+from ..constants import (BITS_PER_COMP, MAX_TILEMAP_H, MAX_TILEMAP_W,
+                         SHOT_TRANS_AVG_FRAMES, SHOT_TRANS_GRACE_PERIOD,
+                         SHOT_TRANS_HARD_THRES, SHOT_TRANS_MAX_TILES_PER_KF,
+                         SHOT_TRANS_SOFT_THRES, TILE_W)
 from ..ops import stats
+from ..ops.dither import floyd_steinberg_posterize
 from .state import EncoderState
+
+
+def ffmpeg_args(path: str, out_pattern: str, start_frame: int = 0,
+                frame_count: int = 0, scale: float = 1.0) -> list[str]:
+    """ffmpeg argv for frame extraction (DoExternalFFMpeg,
+    main.pas:4780-4787): frame-range select, full-range conversion and
+    Lanczos scale, rgb24 PNG sequence out. A bounded frame_count also
+    caps the OUTPUT (-frames:v): the select filter alone keeps decoding
+    the input to EOF after the range."""
+    last = start_frame + frame_count - 1 if frame_count > 0 else 2**30
+    sel = (f"select=between(n\\,{start_frame}\\,{last}),"
+           f"setpts=PTS-STARTPTS,scale=in_range=auto:out_range=full")
+    vf = f"{sel},scale=iw*{scale}:ih*{scale}:flags=lanczos"
+    args = ['-y', '-i', path, '-vf', vf]
+    if frame_count > 0:
+        args += ['-frames:v', str(frame_count)]
+    return args + ['-pix_fmt', 'rgb24', out_pattern]
+
+
+def parse_ffmpeg_fps(stderr: str, default: float = 24.0) -> float:
+    """Frame rate from ffmpeg's stream-info stderr.
+
+    The reference scrapes the token before the first ' fps'
+    (main.pas:4794-4799); real ffmpeg prints e.g.
+    `... 1280x720, 1074 kb/s, 29.97 fps, 30 tbr, ...`. We match the
+    number immediately preceding 'fps' anywhere (first occurrence), fall
+    back to the 'tbr' figure, then to `default`."""
+    import re
+    for unit in ('fps', 'tbr'):
+        m = re.search(r'(\d+(?:\.\d+)?)\s*' + unit + r'\b', stderr)
+        if m:
+            try:
+                v = float(m.group(1))
+                if v > 0:
+                    return v
+            except ValueError:
+                pass
+    return default
+
+
+def frames_from_video(path: str, start_frame: int = 0, frame_count: int = 0,
+                      scale: float = 1.0) -> tuple[np.ndarray, float]:
+    """Extract frames with ffmpeg (DoExternalFFMpeg equivalent: frame-range
+    select + Lanczos scale + full-range rgb24). Returns (frames, fps)."""
+    ffmpeg = shutil.which('ffmpeg')
+    if ffmpeg is None:
+        raise RuntimeError('ffmpeg not available on this host')
+    from ..utils.progress import run_command
+    tmp = tempfile.mkdtemp(prefix='tiler_png_')
+    try:
+        # progressive pipe pump with live echo (internalRuncommand,
+        # extern.pas:94-200): ffmpeg reports progress on stderr
+        code, _out, stderr = run_command(
+            [ffmpeg] + ffmpeg_args(path, os.path.join(tmp, '%06d.png'),
+                                   start_frame, frame_count, scale),
+            echo=True)
+        if code != 0:
+            raise RuntimeError(f'ffmpeg failed ({code}): {stderr[-500:]}')
+        fps = parse_ffmpeg_fps(stderr)
+        frames = frames_from_pngs(os.path.join(tmp, '*.png'))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return frames, fps
+
+
+def ffmpeg_rawvideo_args(path: str, start_frame: int = 0,
+                         frame_count: int = 0,
+                         scale: float = 1.0) -> list[str]:
+    """ffmpeg argv streaming rgb24 raw frames to stdout: the PNG-form
+    argv with only the output target swapped for a rawvideo pipe."""
+    args = ffmpeg_args(path, '-', start_frame, frame_count, scale)
+    return args[:-1] + ['-f', 'rawvideo', '-']
+
+
+def open_video_stream(path: str, start_frame: int = 0,
+                      frame_count: int = 0, scale: float = 1.0):
+    """Pipe-based ingestion for the streaming encoder: returns
+    (frame_iterator, fps, (h, w)). A one-frame probe
+    (frames_from_video) learns the post-filter output dimensions and
+    fps, then a single `-f rawvideo` pipe streams every frame — frames
+    are never all in RAM and, unlike the batch frames_from_video spool,
+    never all on disk either.
+
+    The iterator fails LOUDLY: a nonzero ffmpeg exit or a mid-frame
+    pipe end raises (with the stderr tail) instead of silently
+    finalizing a truncated encode; abandoning the iterator early
+    terminates ffmpeg rather than blocking on a full residual decode."""
+    import collections
+    import threading
+
+    ffmpeg = shutil.which('ffmpeg')
+    if ffmpeg is None:
+        raise RuntimeError('ffmpeg not available on this host')
+    probe, fps = frames_from_video(path, start_frame, 1, scale)
+    h, w = probe.shape[1:3]
+
+    proc = subprocess.Popen([ffmpeg] + ffmpeg_rawvideo_args(
+        path, start_frame, frame_count, scale),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    err_tail: collections.deque = collections.deque(maxlen=50)
+
+    def drain():
+        for line in proc.stderr:
+            err_tail.append(line)
+    drainer = threading.Thread(target=drain, daemon=True)
+    drainer.start()
+
+    def tail() -> str:
+        return b''.join(err_tail).decode('utf-8', 'replace')[-500:]
+
+    def gen():
+        nbytes = h * w * 3
+        completed = False
+        try:
+            while True:
+                buf = proc.stdout.read(nbytes)
+                if not buf:
+                    completed = True
+                    break
+                if len(buf) < nbytes:
+                    raise RuntimeError(
+                        f'ffmpeg pipe ended mid-frame ({len(buf)} of '
+                        f'{nbytes} bytes): {tail()}')
+                yield np.frombuffer(buf, np.uint8).reshape(h, w, 3)
+        finally:
+            proc.stdout.close()
+            if not completed and proc.poll() is None:
+                proc.terminate()  # abandoned early: don't block on EOF
+            code = proc.wait()
+            drainer.join(timeout=5)
+            if completed and code != 0:
+                raise RuntimeError(f'ffmpeg failed ({code}): {tail()}')
+
+    return gen(), fps, (h, w)
+
+
+def sorted_frame_paths(pattern: str) -> list[str]:
+    """Glob sorted NUMERICALLY by the digits in each name: a plain
+    lexicographic sort interleaves '10000.png' between '0999' and
+    '2000' once a spool passes 9999 frames — exactly the long-clip case
+    streaming exists for."""
+    import re
+
+    def key(p):
+        name = os.path.basename(p)
+        nums = re.findall(r'\d+', name)
+        return ([int(x) for x in nums], name)
+
+    paths = sorted(glob.glob(pattern), key=key)
+    if not paths:
+        raise FileNotFoundError(pattern)
+    return paths
+
+
+def frames_from_pngs(pattern: str) -> np.ndarray:
+    from PIL import Image
+    return np.stack([np.asarray(Image.open(p).convert('RGB'))
+                     for p in sorted_frame_paths(pattern)])
 
 
 def split_into_tiles(frames: np.ndarray, th: int, tw: int) -> np.ndarray:
@@ -85,9 +248,6 @@ def run_load(state: EncoderState, frames: np.ndarray,
              fps: float | None = None) -> EncoderState:
     """Populate state from raw frames [F,H,W,3] uint8."""
     cfg = state.config
-    if BITS_PER_COMP < 8:
-        raise NotImplementedError('FS posterize below 8 bits/comp is not '
-                                  'ported')
     if fps is not None:
         state.fps = fps
     f, h, w, _ = frames.shape
@@ -98,7 +258,12 @@ def run_load(state: EncoderState, frames: np.ndarray,
     state.tilemap_h, state.tilemap_w = th, tw
     frames = np.ascontiguousarray(frames[:, :th * TILE_W, :tw * TILE_W])
     state.frames_rgb = frames
-    state.fs_pixels = frames  # FS posterize is the identity at 8 bits
+    # whole-frame FS posterize (identity at the default 8 bits/comp)
+    if BITS_PER_COMP >= 8:
+        state.fs_pixels = frames
+    else:
+        state.fs_pixels = np.stack(
+            [floyd_steinberg_posterize(fr, BITS_PER_COMP) for fr in frames])
     state.keyframes = detect_keyframes(state.fs_pixels, th * tw)
 
     state.tiles_rgb = split_into_tiles(frames, th, tw)

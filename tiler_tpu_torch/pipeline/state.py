@@ -105,6 +105,25 @@ class EncoderState:
         self._tiles_pal_dev = arr
         self._tiles_pal_host = None
 
+    def peek_tiles_pal(self) -> Optional[np.ndarray]:
+        """Read-only snapshot of tiles_pal for serialization: it neither
+        drops the device tensor nor leaves a host copy behind, so the
+        steps after a checkpoint go on with the same device tensor."""
+        if self._tiles_pal_host is None and self._tiles_pal_dev is not None:
+            return self._tiles_pal_dev.cpu().numpy()
+        return self._tiles_pal_host
+
+    def release_device(self) -> None:
+        """Drop every device tensor the state holds (the source tiles and
+        the device side of tiles_pal, brought to the host first when it
+        is the authoritative one). The host fields stay valid: a finished
+        GOP's state can be kept for assembly without holding the card's
+        memory."""
+        if self._tiles_pal_host is None and self._tiles_pal_dev is not None:
+            self._tiles_pal_host = self._tiles_pal_dev.cpu().numpy().copy()
+        self._tiles_pal_dev = None
+        self._src_tiles = {}
+
     def device_tiles_pal(self) -> torch.Tensor:
         """tiles_pal on the device, uploaded once when the host side is
         authoritative."""

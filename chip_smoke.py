@@ -39,6 +39,16 @@ JSON line; any failure raises and exits non-zero):
         CLI in child processes on the small clip: an injected crash
         (exit 13) and its resumed rerun, info, transcode and
         encode --stream;
+     f. the multi-device encoder on that clip, each phase under its own
+        time limit: encode_gop_sharded_exact at 3 hosts (threads sharing
+        the card; 1 host as its baseline) and Encoder(mesh=['cuda:0'] *
+        4).run_all with and without mesh_kmodes all write the batch
+        encode's bytes, K1 and its prepare launched as often as in the
+        batch encode, the mesh's K1 calls split over its 4 shards;
+        wall, peak device memory and mesh_sharded_wall beside the batch
+        encode's; then the CLI on the small clip: --distributed in two child processes on the card
+        (gloo on a free localhost port) writes the one-device CLI's
+        bytes, and --devices 2 exits naming the one device there is;
   5. decode: both 1080p streams through the package's numpy decoder,
      each with PSNR >= 29 dB.
 The last three lines are the kernels' JSON record, the card's name and
@@ -47,9 +57,12 @@ result without a CUDA card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -883,6 +896,153 @@ def check_cli(card: str, tmp: str) -> None:
         raise AssertionError(f'CLI encode --stream: {streamed}')
 
 
+@contextlib.contextmanager
+def time_limit(seconds: int, what: str):
+    """Raise TimeoutError in the main thread if the block runs longer."""
+    def expired(signum, frame):
+        raise TimeoutError(f'{what}: over {seconds} s')
+    old = signal.signal(signal.SIGALRM, expired)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def check_gop_exact(frames, cfg, card: str, batch: dict, want: bytes,
+                    counts: dict) -> dict:
+    """Path f, the exact GOP-sharded encode at 1 and at 3 hosts, the host
+    threads sharing the card: the batch encode's bytes, and K1 and its
+    prepare launched as often as the batch encode launched them (the
+    same keyframes' stage 3, split over the hosts). Returns the 3-host
+    run's counts."""
+    import torch
+
+    from tiler_tpu_torch.parallel.gop_exact import encode_gop_sharded_exact
+    for hosts in (1, 3):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _counts_zero()
+        t0 = time.perf_counter()
+        with time_limit(600, f'gop_exact {hosts} hosts'):
+            blob = encode_gop_sharded_exact(frames, cfg, n_hosts=hosts,
+                                            fps=24, fast_lzma=True,
+                                            device='cuda', timeout=540)
+        wall = time.perf_counter() - t0
+        got = _counts()
+        say('gop_exact', card=card, hosts=hosts, wall_s=wall,
+            gtm_bytes=len(blob), same_bytes=blob == want, launches=got,
+            batch_launches=counts,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            batch=batch)
+        if blob != want:
+            raise AssertionError(f'{hosts}-host exact encode != batch bytes')
+        if got != counts:
+            raise AssertionError(f'{hosts}-host launches {got} != batch '
+                                 f'{counts}')
+    return got
+
+
+def check_mesh(frames, cfg, card: str, batch: dict, want: bytes) -> dict:
+    """Path f, Encoder(mesh=['cuda:0'] * 4).run_all with and without
+    mesh_kmodes: the batch encode's bytes, K1 launched once per stage-3
+    call of each shard and the prepare once per keyframe (the four
+    shards share one card, so one Prepared set). Returns the launch
+    counts of both runs."""
+    import torch
+
+    from tiler_tpu_torch.parallel.mesh import make_mesh
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    mesh = make_mesh(devices=['cuda:0'] * 4)
+    out = {}
+    for mesh_kmodes in (False, True):
+        name = 'mesh4_kmodes' if mesh_kmodes else 'mesh4'
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _counts_zero()
+        enc = Encoder(dataclasses.replace(cfg, mesh_kmodes=mesh_kmodes),
+                      mesh=mesh)
+        t0 = time.perf_counter()
+        with time_limit(600, name):
+            blob = enc.run_all(frames, fps=24, fast_lzma=True)
+        wall = time.perf_counter() - t0
+        got = _counts()
+        m = enc.state.metrics
+        say(name, card=card, wall_s=wall, gtm_bytes=len(blob),
+            same_bytes=blob == want, launches=got,
+            launches_per_shard=m['ft_nn_calls_shards'],
+            mesh_sharded_wall=m['mesh_sharded_wall'],
+            step_times=enc.state.step_times, gt_phases=m['gt_phases'],
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            batch=batch)
+        if blob != want:
+            raise AssertionError(f'{name} stream != batch encode bytes')
+        if got['nn1'] <= 0 or got['nn1'] != m['ft_nn_calls'] or \
+                got['nn1'] != sum(m['ft_nn_calls_shards']) or \
+                len(m['ft_nn_calls_shards']) != 4 or \
+                got['nn1_prepare'] != m['n_keyframes']:
+            raise AssertionError(f'{name}: launches {got}, per shard '
+                                 f'{m["ft_nn_calls_shards"]}')
+        out[name] = dict(got, per_shard=m['ft_nn_calls_shards'])
+        del enc
+    return out
+
+
+def check_cli_multi(card: str, tmp: str) -> None:
+    """Path f, the CLI's multi-device forms on the small clip (check_cli's
+    clip and one-device stream): two --distributed children on the card,
+    joined by gloo on a free localhost port, write the one-device bytes
+    (rank 0 writes); --devices 2 on this one-card machine exits non-zero
+    with the JAX CLI's 'only 1 device(s) available'."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    clip = os.path.join(tmp, 'clip.npy')
+    flags = ['--device', 'cuda', '--palette-count', '16', '--max-tiles',
+             '400', '--fast-lzma']
+    env = dict(os.environ, PYTHONPATH=root)
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    out = os.path.join(tmp, 'dist.gtm')
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, '-m', 'tiler_tpu_torch', 'encode', clip,
+         out if pid == 0 else os.devnull, *flags, '--distributed',
+         '--coordinator', f'localhost:{port}', '--num-processes', '2',
+         '--process-id', str(pid)], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in (0, 1)]
+    try:
+        results = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    dist_s = time.perf_counter() - t0
+    for pid, (p, (_, err)) in enumerate(zip(procs, results)):
+        if p.returncode != 0:
+            raise AssertionError(f'--distributed rank {pid}: exit '
+                                 f'{p.returncode}, {err[-2000:]}')
+    with open(out, 'rb') as fh:
+        dist = fh.read()
+    with open(os.path.join(tmp, 'ref.gtm'), 'rb') as fh:
+        ref = fh.read()
+    t0 = time.perf_counter()
+    two = subprocess.run(
+        [sys.executable, '-m', 'tiler_tpu_torch', 'encode', clip,
+         os.path.join(tmp, 'two.gtm'), *flags, '--devices', '2'],
+        capture_output=True, text=True, cwd=root, env=env, timeout=300)
+    say('cli_multi', card=card, distributed_s=dist_s,
+        distributed=json.loads(results[0][0].strip().splitlines()[-1]),
+        distributed_same_bytes=dist == ref,
+        devices2_exit=two.returncode, devices2_said=two.stderr.strip()[-200:],
+        devices2_s=time.perf_counter() - t0)
+    if dist != ref:
+        raise AssertionError('--distributed stream != one-device CLI bytes')
+    if two.returncode == 0 or 'only 1 device(s) available' not in two.stderr:
+        raise AssertionError(f'--devices 2: exit {two.returncode}, '
+                             f'{two.stderr[-500:]}')
+
+
 def encode(frames, cfg, device):
     from tiler_tpu_torch.pipeline.encoder import Encoder
     enc = Encoder(cfg, device=device)
@@ -926,6 +1086,7 @@ def main() -> int:
     enc, blob, counts = encode_counted(frames, cfg, 'slice', card,
                                        warm_s=warm_s)
     record['launches'], prep['launches'] = counts['nn1'], counts['nn1_prepare']
+    counts_batch = counts
     decoded, stream = decode_video(blob)
     batch = {'wall_s': sum(enc.state.step_times.values()),
              'gtm_bytes': len(blob), 'tiles': len(stream.tiles),
@@ -948,6 +1109,14 @@ def main() -> int:
         prep['launches_streaming'] = counts['nn1_prepare']
         check_resume(frames, cfg, card, blob, tmp)
         check_cli(card, tmp)
+        got = check_gop_exact(frames, cfg, card, batch, blob, counts_batch)
+        record['launches_gop_exact_3hosts'] = got['nn1']
+        prep['launches_gop_exact_3hosts'] = got['nn1_prepare']
+        for name, got in check_mesh(frames, cfg, card, batch, blob).items():
+            record[f'launches_{name}'] = got['nn1']
+            record[f'launches_{name}_per_shard'] = got['per_shard']
+            prep[f'launches_{name}'] = got['nn1_prepare']
+        check_cli_multi(card, tmp)
 
     cfg_yv = dataclasses.replace(cfg, use_thomas_knoll=False, use_dl3=False)
     _, blob, _ = encode_counted(frames, cfg_yv, 'slice_yliluoma_var', card)

@@ -223,12 +223,34 @@ def test_serve_stages_the_demo_page_and_the_stream(work, capsys,
     (['--stream', '--devices', '4'], '--devices 4'),
     (['--device', 'cuda', '--hosts', '3'], '--hosts 3 without')])
 def test_multi_device_flags_exit_2_by_name(work, capsys, flags, name):
-    out = work / 'never.gtm'
+    """The multi-device flags run now: each writes the stream of the
+    single-device encode (the streaming file with --stream). The
+    --distributed case joins a one-process job on a free localhost port
+    in place of its unreachable coordinator. Only a missing device still
+    exits 2, by its name: --device cuda without a card."""
+    out = work / 'multi.gtm'
+    if out.exists():
+        out.unlink()
+    if '--distributed' in flags:
+        import socket
+        with socket.socket() as s:
+            s.bind(('localhost', 0))
+            port = s.getsockname()[1]
+        flags = flags[:1] + ['--coordinator', f'localhost:{port}',
+                             '--num-processes', '1', '--process-id', '0']
     rc = cli.main(['encode', str(work / 'clip.npy'), str(out)] + ENC + flags)
     err = capsys.readouterr().err
-    assert rc == 2 and not out.exists()
-    assert err.count('\n') == 1 and err.startswith(f'error: {name}')
-    assert 'multi-device port is not done' in err
+    if '--device' in flags and not torch.cuda.is_available():
+        assert rc == 2 and not out.exists()
+        assert err.count('\n') == 1 and 'cuda' in err
+        assert '--device cpu' in err
+        return
+    assert rc == 0 and 'multi-device port is not done' not in err
+    want = work / ('s.gtm' if '--stream' in flags else 'ref.gtm')
+    if not want.exists():
+        assert cli.main(['encode', str(work / 'clip.npy'), str(want),
+                         '--stream'] + ENC) == 0
+    assert out.read_bytes() == want.read_bytes(), name
 
 
 @pytest.mark.parametrize('argv', [

@@ -3,6 +3,8 @@ the JAX package on the same inputs, from single functions up to the
 whole stream of the 8x120x160 cuts_v2 clip. Integer stages are
 byte-identical; FrameTiling's float 1-NN is held by the tie-aware check
 of test_torch_steps."""
+import jax_native_lock  # noqa: F401  (first: builds tiler_tpu's library)
+
 import numpy as np
 import pytest
 import torch

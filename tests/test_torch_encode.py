@@ -1,5 +1,7 @@
 """The whole slice: the same clip through both packages, the port's CLI,
 and the port running with JAX made unimportable."""
+import jax_native_lock  # noqa: F401  (first: builds tiler_tpu's library)
+
 import json
 import os
 import subprocess

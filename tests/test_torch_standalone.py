@@ -34,7 +34,7 @@ from tiler_tpu_torch.tools.common import synthetic_clip_v2
 from tiler_tpu_torch.utils import progress as pprogress
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ('jax', 'tiler_tpu', 'bench')
+BLOCKED = ('jax', 'tiler_tpu', 'bench', '__graft_entry__')
 _BLOCK = ("import sys\n"
           f"for m in {BLOCKED!r}: sys.modules[m] = None\n")
 _NONE_LOADED = (
@@ -81,6 +81,39 @@ def test_new_modules_are_walked_and_import_no_jax():
         "print('ok')\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
+
+
+def test_parallel_modules_run_with_jax_package_blocked():
+    """Every module of the port's multi-device encoder imports, and a
+    2-shard mesh encode and a 2-host exact encode run and write the
+    1-device bytes, with tiler_tpu, bench, jax and __graft_entry__
+    unimportable."""
+    mods = ['parallel.mesh', 'parallel.sharded_ops',
+            'parallel.mesh_pipeline', 'parallel.gop_exact',
+            'parallel.distributed']
+    code = _BLOCK + (
+        "import importlib\n"
+        f"for n in {mods!r}:\n"
+        "    importlib.import_module('tiler_tpu_torch.' + n)\n"
+        "from tiler_tpu_torch.config import EncoderConfig\n"
+        "from tiler_tpu_torch.parallel.gop_exact import "
+        "encode_gop_sharded_exact\n"
+        "from tiler_tpu_torch.parallel.mesh import make_mesh\n"
+        "from tiler_tpu_torch.pipeline.encoder import Encoder\n"
+        "from tiler_tpu_torch.tools.common import synthetic_clip_v2\n"
+        "clip = synthetic_clip_v2(4, 48, 64, seed=2)\n"
+        "cfg = EncoderConfig(palette_count=8, max_tiles=60)\n"
+        "want = Encoder(cfg, device='cpu').run_all(clip, fast_lzma=True)\n"
+        "mesh = make_mesh(devices=['cpu', 'cpu'])\n"
+        "assert Encoder(cfg, device='cpu', mesh=mesh).run_all(\n"
+        "    clip, fast_lzma=True) == want\n"
+        "assert encode_gop_sharded_exact(clip, cfg, 2, fps=24.0, "
+        "fast_lzma=True, device='cpu') == want\n"
+        + _NONE_LOADED +
+        "print('ok')\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == 'ok'
 
 
 def test_cli_encodes_and_decodes_with_jax_package_blocked(tmp_path):
@@ -132,8 +165,8 @@ def test_cli_encodes_and_decodes_with_jax_package_blocked(tmp_path):
 # -- (b) the sources ---------------------------------------------------------
 
 def test_no_source_imports_the_jax_package():
-    pat = re.compile(r'^\s*(from|import)\s+(tiler_tpu(\.|\s|$)|bench\b|jax\b)',
-                     re.M)
+    pat = re.compile(r'^\s*(from|import)\s+(tiler_tpu(\.|\s|$)|bench\b|jax\b'
+                     r'|__graft_entry__\b)', re.M)
     paths = [os.path.join(REPO, 'chip_smoke.py')]
     for root, _, files in os.walk(os.path.join(REPO, 'tiler_tpu_torch')):
         paths += [os.path.join(root, f) for f in files if f.endswith('.py')]
@@ -300,36 +333,63 @@ def _own(mod):
 
 
 # (JAX module, port module, names whose source is the original's,
-#  names that differ: they take a device or use torch)
+#  names that differ: they take a device or use torch, and the names
+#  left out: the JAX renderer, the jit and shard_map bookkeeping of the
+#  multi-device modules, and their per-stage wrappers)
+_JIT_CACHES = {'_evict_other_meshes', '_get_assign_full_fn',
+               '_get_chunk_feats_fn', '_get_knoll_fns',
+               '_get_kmeans_prepare_fn', '_get_smooth_fn', '_get_topk_fn',
+               '_get_unique_count_fn', '_get_unique_dedup_fn',
+               '_kmodes_solver', '_rows_to_words', '_pad_to'}
+# the per-stage wrappers of the JAX package's mesh_pipeline: the port's
+# call sites cut their rows with mesh_pipeline.map_rows instead
+_STAGE_WRAPPERS = {'shard_rows', 'assign_sharded_full', 'chunk_feats_sharded',
+                   'knoll_counts_sharded', 'knoll_assign_sharded',
+                   'kmeans_prepare_sharded', 'smooth_sharded',
+                   'nearest_k_sharded', 'signatures_sharded'}
 _COPIES = [
     ('decode', 'decode',
      ['FrameOps', 'DecodedStream', 'interpret_commands', '_interpret_native',
       'CommandInterpreter', 'interpret_commands_py', '_blit_cells_numpy',
-      '_blit_cells_blocked', 'blocks_to_image', 'decode_video'], []),
-    ('player', 'player', ['GTMPlayer'], []),
+      '_blit_cells_blocked', 'blocks_to_image', 'decode_video'], [],
+     {'make_jax_renderer', 'decode_video_jax_scan', 'decode_video_jax'}),
+    ('player', 'player', ['GTMPlayer'], [], set()),
     ('render', 'render',
      ['render_frame', 'render_tiles_page', 'render_palette_strip',
-      'reconstruction_correlation', 'reconstruction_psnr'], []),
+      'reconstruction_correlation', 'reconstruction_psnr'], [], set()),
     ('pipeline.load', 'pipeline.load',
      ['ffmpeg_args', 'parse_ffmpeg_fps', 'frames_from_video',
       'ffmpeg_rawvideo_args', 'open_video_stream', 'sorted_frame_paths',
       'frames_from_pngs', 'split_into_tiles'],
-     ['keyframes_from_correlations', 'detect_keyframes', 'run_load']),
+     ['keyframes_from_correlations', 'detect_keyframes', 'run_load'], set()),
     ('pipeline.stream', 'pipeline.stream',
      ['OnlineKeyframeDetector', '_stream_driver', '_kf_info',
       'iter_frames_npy', 'iter_frames_pngs'],
-     ['_encode_gop', 'encode_streaming', '_encode_streaming_reload']),
+     ['_encode_gop', 'encode_streaming', '_encode_streaming_reload'], set()),
     ('parallel.distributed', 'parallel.distributed',
      ['assign_gops_to_hosts'],
-     ['encode_gop_sharded', 'encode_gop_partition']),
+     ['encode_gop_sharded', 'encode_gop_partition', 'init_distributed'],
+     set()),
+    ('parallel.gop_exact', 'parallel.gop_exact',
+     ['HostPartition', '_to_global_tiles', '_assemble_global'],
+     ['ThreadComm', 'ProcessComm', '_build_partition',
+      '_encode_my_partition', 'encode_gop_sharded_exact',
+      'encode_multihost'], set()),
+    ('parallel.mesh', 'parallel.mesh', [], ['make_mesh'], set()),
+    ('parallel.sharded_ops', 'parallel.sharded_ops', [],
+     ['sharded_psyv_features', 'sharded_kmeans', 'sharded_kmodes',
+      'sharded_nearest_1', 'sharded_unique', '_hash_words'], _JIT_CACHES),
+    ('parallel.mesh_pipeline', 'parallel.mesh_pipeline', [],
+     ['mesh_ok', 'replicate'], _JIT_CACHES | _STAGE_WRAPPERS),
     ('utils.checkpoint', 'utils.checkpoint', ['checkpoint_path'],
-     ['save_checkpoint', 'load_checkpoint']),
+     ['save_checkpoint', 'load_checkpoint'], set()),
 ]
 
 
-@pytest.mark.parametrize('jname,pname,same,ported', _COPIES,
+@pytest.mark.parametrize('jname,pname,same,ported,left_out', _COPIES,
                          ids=[c[0] for c in _COPIES])
-def test_copied_functions_are_the_originals(jname, pname, same, ported):
+def test_copied_functions_are_the_originals(jname, pname, same, ported,
+                                            left_out):
     """Host code that the port keeps as a copy has the original's source,
     name by name; what was ported (a device argument, torch) is there
     under the same name."""
@@ -342,11 +402,9 @@ def test_copied_functions_are_the_originals(jname, pname, same, ported):
             inspect.getsource(theirs[name]), name
     for name in ported:
         assert name in mine and name in theirs, name
-    # nothing of the original is missing but what waits for the
-    # multi-device part of the port or is the JAX renderer itself
+    # nothing of the original is missing but what the table leaves out
     missing = set(theirs) - set(mine)
-    assert missing <= {'make_jax_renderer', 'decode_video_jax_scan',
-                       'decode_video_jax', 'init_distributed'}, missing
+    assert missing <= left_out, missing
     if jname == 'decode':
         assert {'render_step', 'decode_video_torch',
                 'decode_video_torch_scan'} <= set(mine)

@@ -1,8 +1,9 @@
-"""tiler_tpu_torch: the GTM codec's single-device package in PyTorch, for
-one NVIDIA H100 (sm_90a), beside the JAX package tiler_tpu that it is
-held against: the encoder, checkpoint and resume, ingestion, the
-streaming and the in-process GOP-sharded encode, the decoders, the
-player, the preview renderer and the command line.
+"""tiler_tpu_torch: the GTM codec in PyTorch, for one NVIDIA H100
+(sm_90a), beside the JAX package tiler_tpu that it is held against: the
+encoder, checkpoint and resume, ingestion, the streaming and the
+GOP-sharded encodes, the multi-device encoder (a device mesh, host
+threads, torch.distributed processes), the decoders, the player, the
+preview renderer and the command line.
 
 It mirrors tiler_tpu's layout and names and stands alone: it imports
 torch and numpy, never jax and nothing of tiler_tpu. What the two have

@@ -6,14 +6,18 @@ The reference is GUI-driven (main.lfm); this CLI exposes the same knob set
 through flags (SURVEY.md §5.6) plus decode and stream inspection. Every
 verb that uses a device takes --device (default cuda) and exits 2 when
 that device is missing; nothing carries on on the CPU by itself. The
-flags of the multi-device encoder (--devices N>1, --mesh-kmodes, --hosts
-without --gop-local-tilesets, --distributed) are accepted and exit 2
-with one line: that part of the port is not done.
+multi-device encoder: --devices N shards the frame-axis-parallel stages
+across a mesh of the first N CUDA cards (N logical shards of the CPU
+with --device cpu), --hosts N runs the N-host GOP-sharded encode in
+process, --distributed joins a torch.distributed job (gloo) and runs one
+host's share of it; each writes the single-device stream.
 
 Examples:
   python -m tiler_tpu_torch encode in_%04d.png out.gtm --palette-count 128
   python -m tiler_tpu_torch encode clip.npy out.gtm --auto-checkpoint ck
   python -m tiler_tpu_torch encode clip.npy out.gtm --stream
+  python -m tiler_tpu_torch encode clip.npy out.gtm --hosts 3
+  python -m tiler_tpu_torch encode clip.npy out.gtm --device cpu --devices 4
   python -m tiler_tpu_torch decode out.gtm frames_out.npy
   python -m tiler_tpu_torch info out.gtm
 """
@@ -28,8 +32,6 @@ import numpy as np
 
 _DEVICE_HELP = ('torch device the verb runs on; a missing CUDA device '
                 'exits 2 (pass cpu to run on the CPU)')
-_NOT_PORTED = ('the multi-device port is not done: it runs in the JAX '
-               'package (python -m tiler_tpu) only')
 
 
 def _add_encode_flags(p: argparse.ArgumentParser) -> None:
@@ -150,26 +152,9 @@ def _load_input(path: str, a):
                                       a.scaling)
 
 
-def _multi_device_flag(a) -> str | None:
-    """The first flag on the command line that asks for the multi-device
-    encoder, or None."""
-    if a.distributed:
-        return '--distributed'
-    if a.devices > 1:
-        return f'--devices {a.devices}'
-    if a.mesh_kmodes:
-        return '--mesh-kmodes'
-    if a.hosts > 1 and not a.gop_local_tilesets:
-        return f'--hosts {a.hosts} without --gop-local-tilesets'
-    return None
-
-
 def _refusal(a) -> str | None:
-    """Why the parsed command cannot run here, or None: a flag of the
-    multi-device encoder (named first, whatever the device), or a
-    --device that does not exist."""
-    if a.cmd == 'encode' and _multi_device_flag(a):
-        return f'{_multi_device_flag(a)}: {_NOT_PORTED}'
+    """Why the parsed command cannot run here, or None: a --device that
+    does not exist."""
     if hasattr(a, 'device'):
         from .pipeline.encoder import resolve_device
         try:
@@ -179,11 +164,35 @@ def _refusal(a) -> str | None:
     return None
 
 
+def _mesh_from_args(a):
+    """The --devices N mesh, or None for one device: the first N CUDA
+    cards, or N logical shards of the CPU with --device cpu."""
+    if a.devices <= 1:
+        return None
+    import torch
+
+    from .parallel.mesh import make_mesh
+    from .parallel.mesh_pipeline import mesh_ok
+    if torch.device(a.device).type == 'cpu':
+        mesh = make_mesh(devices=['cpu'] * a.devices)
+    else:
+        try:
+            mesh = make_mesh(a.devices)
+        except ValueError as e:
+            raise SystemExit(f'--devices {a.devices}: {e}') from None
+    if not mesh_ok(mesh):
+        raise SystemExit(f'--devices {a.devices}: device count must be a '
+                         'power of two')
+    return mesh
+
+
 def cmd_encode(a) -> int:
     from .pipeline.encoder import Encoder
     from .render import reconstruction_psnr
     from .utils.checkpoint import load_checkpoint, save_checkpoint
 
+    if a.distributed:
+        return _cmd_encode_distributed(a)
     if a.hosts > 1:
         return _cmd_encode_hosts(a)
     if a.stream:
@@ -224,11 +233,14 @@ def cmd_encode(a) -> int:
             resume_from = a.auto_checkpoint
             resume_state = probe
 
-    enc = Encoder(cfg, device=a.device)
+    mesh = _mesh_from_args(a)
+    enc = Encoder(cfg, device=a.device, mesh=mesh)
     if resume_from:
         enc.state = resume_state if resume_state is not None \
-            else load_checkpoint(resume_from, a.device)
+            else load_checkpoint(resume_from, enc.device)
         enc.state = dataclass_replace_config(enc.state, enc.config)
+        if mesh is not None:
+            enc.state.mesh = mesh  # not serialized; re-attach after load
         frames = enc.state.frames_rgb
         fps = enc.state.fps
     else:
@@ -274,17 +286,47 @@ def cmd_encode(a) -> int:
 
 
 def _cmd_encode_hosts(a) -> int:
-    """In-process N-host GOP-sharded encode with per-GOP tilesets
-    (--hosts N --gop-local-tilesets; the exact shared-tileset form needs
-    the collectives and is refused in main)."""
-    from .parallel.distributed import encode_gop_sharded
+    """In-process N-host GOP-sharded encode (--hosts N): the exact
+    shared-tileset form, or per-GOP tilesets with --gop-local-tilesets."""
     frames, fps = _load_input(a.input, a)
     cfg = _config_from_args(a)
-    blob = encode_gop_sharded(frames, cfg, n_hosts=a.hosts, fps=fps,
-                              fast_lzma=a.fast_lzma, device=a.device)
+    if a.gop_local_tilesets:
+        from .parallel.distributed import encode_gop_sharded
+        blob = encode_gop_sharded(frames, cfg, n_hosts=a.hosts, fps=fps,
+                                  fast_lzma=a.fast_lzma, device=a.device)
+    else:
+        from .parallel.gop_exact import encode_gop_sharded_exact
+        blob = encode_gop_sharded_exact(frames, cfg, n_hosts=a.hosts,
+                                        fps=fps, fast_lzma=a.fast_lzma,
+                                        device=a.device)
     open(a.output, 'wb').write(blob)
     print(json.dumps(dict(hosts=a.hosts, gtm_bytes=len(blob),
                           exact=not a.gop_local_tilesets)))
+    return 0
+
+
+def _cmd_encode_distributed(a) -> int:
+    """Real multi-process encode: run on every process of a
+    torch.distributed job (--coordinator host:port, --num-processes,
+    --process-id, or the TILER_* environment); process 0 writes the
+    stream."""
+    import torch.distributed as dist
+
+    from .parallel.distributed import init_distributed
+    from .parallel.gop_exact import ProcessComm, encode_multihost
+    init_distributed(a.coordinator, a.num_processes, a.process_id)
+    try:
+        frames, fps = _load_input(a.input, a)
+        blob = encode_multihost(frames, _config_from_args(a), fps=fps,
+                                fast_lzma=a.fast_lzma, device=a.device)
+        job = ProcessComm()
+        if job.rank == 0:
+            open(a.output, 'wb').write(blob)
+            print(json.dumps(dict(processes=job.n_hosts,
+                                  gtm_bytes=len(blob))))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 
@@ -329,7 +371,8 @@ def _cmd_encode_stream(a) -> int:
         frames, fps, _hw = load_mod.open_video_stream(
             a.input, a.start_frame, a.frame_count, a.scaling)
     metrics = encode_streaming(frames, cfg, a.output, fps=fps,
-                               fast_lzma=a.fast_lzma, device=a.device)
+                               fast_lzma=a.fast_lzma, device=a.device,
+                               mesh=_mesh_from_args(a))
     print(json.dumps(metrics))
     return 0
 

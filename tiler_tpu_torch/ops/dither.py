@@ -110,29 +110,26 @@ def _key_cols(u: torch.Tensor) -> torch.Tensor:
     return torch.stack([u & 0xff, (u >> 8) & 0xff, (u >> 16) & 0xff], 1)
 
 
-def knoll_dither_tiles_cached(tiles_rgb: torch.Tensor,
-                              group_pals: np.ndarray,
-                              pal_group: torch.Tensor) -> torch.Tensor:
-    """Knoll dither with one plan per unique (palette group, colour).
-
-    tiles_rgb [N,8,8,3] uint8 and pal_group [N] int (ids into group_pals
-    [G,S,3] uint8, G <= 256) on the working device. Returns [N,8,8]
-    uint8 on that device."""
-    dev = tiles_rgb.device
-    n = tiles_rgb.shape[0]
-    if n == 0:
-        return torch.zeros((0, TILE_W, TILE_W), dtype=torch.uint8,
-                           device=dev)
-    uniq, inv, pals = _dedup_keys(tiles_rgb, group_pals, pal_group)
+def knoll_plan_counts(uniq: torch.Tensor, pals: torch.Tensor) -> torch.Tensor:
+    """[U,S] uint8 Knoll plan counts of unique keys group<<24 | colour
+    (as _dedup_keys makes them) against the palettes [G,S,3]."""
     parts = []
     for lo in range(0, uniq.shape[0], _KEY_CHUNK):
         u = uniq[lo:lo + _KEY_CHUNK]
         parts.append(knoll_counts(_key_cols(u), pals[u >> 24])
                      .to(torch.uint8))
-    counts = torch.cat(parts)
+    return torch.cat(parts)
+
+
+def knoll_select(inv: torch.Tensor, pal_group: torch.Tensor,
+                 counts: torch.Tensor, pals: torch.Tensor) -> torch.Tensor:
+    """[n,64] uint8 indices: each pixel's Bayer-rank entry of its key's
+    plan, inv [n,64] the pixels' rows of counts, pal_group [n] the tiles'
+    palette groups."""
+    n = inv.shape[0]
     order_g = _luma_order(pals)
-    bayer = _bayer(dev)
-    out = torch.empty((n, 64), dtype=torch.uint8, device=dev)
+    bayer = _bayer(inv.device)
+    out = torch.empty((n, 64), dtype=torch.uint8, device=inv.device)
     for lo in range(0, n, _TILE_CHUNK):
         hi = min(n, lo + _TILE_CHUNK)
         cnt = counts[inv[lo:hi]].to(torch.int64)            # [c,64,S]
@@ -140,6 +137,35 @@ def knoll_dither_tiles_cached(tiles_rgb: torch.Tensor,
         order = order[:, None, :].expand(-1, 64, -1)
         rank = bayer[None, :].expand(hi - lo, -1)
         out[lo:hi] = rank_select(cnt, order, rank).to(torch.uint8)
+    return out
+
+
+def _apply(fn, rows, *args):
+    """fn(*rows, *args): the row mapper of one device."""
+    return fn(*rows, *args)
+
+
+def knoll_dither_tiles_cached(tiles_rgb: torch.Tensor,
+                              group_pals: np.ndarray,
+                              pal_group: torch.Tensor,
+                              map_rows=_apply) -> torch.Tensor:
+    """Knoll dither with one plan per unique (palette group, colour).
+
+    tiles_rgb [N,8,8,3] uint8 and pal_group [N] int (ids into group_pals
+    [G,S,3] uint8, G <= 256) on the working device. Returns [N,8,8]
+    uint8 on that device. The plan counts and the rank selection go
+    through map_rows(fn, rows, *args), which may cut the rows (a tuple of
+    tensors) across devices and join fn's results in row order
+    (parallel.mesh_pipeline.map_rows); the key dedup, a sort, stays on
+    the working device. Same bytes either way."""
+    dev = tiles_rgb.device
+    n = tiles_rgb.shape[0]
+    if n == 0:
+        return torch.zeros((0, TILE_W, TILE_W), dtype=torch.uint8,
+                           device=dev)
+    uniq, inv, pals = _dedup_keys(tiles_rgb, group_pals, pal_group)
+    counts = map_rows(knoll_plan_counts, (uniq,), pals)
+    out = map_rows(knoll_select, (inv, pal_group), counts, pals)
     return out.reshape(n, TILE_W, TILE_W)
 
 

@@ -133,10 +133,15 @@ def psyv_from_cpn(cpn: torch.Tensor, use_wavelets: bool = False,
 
 
 def psyv_features_rgb(tiles_rgb: torch.Tensor, gamma_value=None,
-                      use_lab=False, use_wavelets=False):
-    """RGB tiles [N,8,8,3] uint8 -> [N,192] float32."""
+                      use_lab=False, use_wavelets=False, q_weighting=False,
+                      hmir=None, vmir=None):
+    """RGB tiles [N,8,8,3] uint8 -> [N,192] float32. Mirrors apply to the
+    pixels before the colour transform."""
+    if hmir is not None:
+        tiles_rgb = mirror_tiles(tiles_rgb, hmir, vmir)
     cpn = rgb_tiles_to_cpn(tiles_rgb, gamma_value, use_lab)
-    return psyv_from_cpn(cpn, use_wavelets=use_wavelets)
+    return psyv_from_cpn(cpn, use_wavelets=use_wavelets,
+                         q_weighting=q_weighting)
 
 
 def psyv_features_pal(tiles_pal: torch.Tensor, palettes_rgb: torch.Tensor,

@@ -54,18 +54,21 @@ def _update(x: torch.Tensor, labels: torch.Tensor, k: int,
     return torch.where((counts == 0)[:, None], old_cents, cents)
 
 
-def kmeans_core(x: torch.Tensor, k: int):
+def kmeans_core(x: torch.Tensor, k: int, max_iters: int = _MAX_ITERS,
+                seed: int = _SEED, assign=_assign):
     """Cluster [N,D] features into k groups; converges when assignments
-    stop changing (at most _MAX_ITERS Lloyd's iterations). Returns
-    (labels [N] int32, centroids [k,D] f32, n_iters)."""
+    stop changing (at most max_iters Lloyd's iterations). `assign(x, x2,
+    cents)` gives the [N] labels on x's device (the mesh passes one that
+    assigns each shard's rows on its own device). Returns (labels [N]
+    int32, centroids [k,D] f32, n_iters)."""
     x = x.to(torch.float32)
     x2 = torch.sum(x * x, dim=1)
-    cents = _plus_plus_init(x, x2, k, prng.prng_key(_SEED))
-    labels = _assign(x, x2, cents)
+    cents = _plus_plus_init(x, x2, k, prng.prng_key(seed))
+    labels = assign(x, x2, cents)
     it = 0
-    while it < _MAX_ITERS:
+    while it < max_iters:
         cents = _update(x, labels, k, cents)
-        new_labels = _assign(x, x2, cents)
+        new_labels = assign(x, x2, cents)
         changed = bool((new_labels != labels).any())
         labels = new_labels
         it += 1

@@ -16,7 +16,10 @@ centroids at a time, at A*16 bytes per point. On the card the matmul is
 the faster of the two at every M measured (PERF.md). Labels and winners
 are byte-identical to the JAX package either way. Results do not depend
 on how lanes are grouped into solves: padded points and centroids are
-masked out of every argmin, argmax, count and cost.
+masked out of every argmin, argmax, count and cost. Nor on how a solve's
+points are cut into contiguous ranges on several devices (a mesh's
+shards, kmodes_batch_gather(devices=)): every cross-range reduction is
+of integers, in range order.
 """
 from __future__ import annotations
 
@@ -60,21 +63,94 @@ def _dis_to(xi: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return (d << _BITS) + l1
 
 
-def _farthest_first(x, xi, k: int, valid_n, start):
+class _Shards:
+    """The points of a batched solve as contiguous row ranges, one per
+    device ([G, n_s, A] uint8 each, in row order): one range on one device
+    is the plain solve, several are the mesh's (the JAX package's
+    sharded_kmodes). Cross-range results come together on the first
+    range's device, reduced in range order, and every reduction is of
+    integers, so the solve gives the same bits however the points are cut.
+    One range takes the direct index paths of the plain solve."""
+
+    def __init__(self, xs: list, valid_ns: list):
+        self.xs, self.valid = xs, valid_ns
+        self.xi = [x.to(torch.int32) for x in xs]
+        self.lo = np.cumsum([0] + [x.shape[1] for x in xs[:-1]]).tolist()
+        self.dev = xs[0].device
+        self.lanes = [torch.arange(x.shape[0], device=x.device) for x in xs]
+
+    def total(self, parts: list) -> torch.Tensor:
+        """Sum of per-range tensors, in range order, on the first device."""
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p.to(self.dev)
+        return out
+
+    def cat(self, parts: list) -> torch.Tensor:
+        """Per-range [G, n_s] tensors joined along the points."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.dev) for p in parts], dim=1)
+
+    def _local(self, s: int, g: torch.Tensor):
+        """Global point index g [G] as (clamped index into range s, owned)."""
+        gl = g.to(self.xs[s].device) - self.lo[s]
+        own = (gl >= 0) & (gl < self.xs[s].shape[1])
+        return gl.clamp(0, self.xs[s].shape[1] - 1), own
+
+    def fetch(self, g: torch.Tensor) -> torch.Tensor:
+        """[G, A] uint8 point g[lane] of each lane, on the first device."""
+        if len(self.xs) == 1:
+            return self.xs[0][self.lanes[0], g]
+        rows = []
+        for s, x in enumerate(self.xs):
+            gl, own = self._local(s, g)
+            rows.append(torch.where(own[:, None], x[self.lanes[s], gl], 0))
+        return self.total(rows)
+
+    def mask(self, vals: list, g: torch.Tensor) -> None:
+        """vals[s][lane, g[lane]] = -1 where range s owns point g[lane]."""
+        if len(vals) == 1:
+            vals[0][self.lanes[0], g] = -1
+            return
+        for s, v in enumerate(vals):
+            gl, own = self._local(s, g)
+            cur = torch.gather(v, 1, gl[:, None])[:, 0]
+            v.scatter_(1, gl[:, None], torch.where(own, -1, cur)[:, None])
+
+    def first_argmax(self, vals: list) -> torch.Tensor:
+        """[G] global index of each lane's first maximum over all ranges."""
+        if len(vals) == 1:
+            return torch.argmax(vals[0], dim=1)
+        best_v = best_i = None
+        for s, v in enumerate(vals):
+            li = torch.argmax(v, dim=1)
+            bv = torch.gather(v, 1, li[:, None])[:, 0].to(self.dev)
+            gi = (li + self.lo[s]).to(self.dev)
+            if best_v is None:
+                best_v, best_i = bv, gi
+            else:
+                take = bv > best_v          # an earlier range wins a tie
+                best_v = torch.where(take, bv, best_v)
+                best_i = torch.where(take, gi, best_i)
+        return best_i
+
+
+def _farthest_first(sh: _Shards, k: int, start):
     """Farthest-first centroids [G,k,A] (kmodes.pas:698-776)."""
-    g = x.shape[0]
-    lanes = torch.arange(g, device=x.device)
-    cents = torch.zeros((g, k, x.shape[2]), dtype=torch.uint8,
-                        device=x.device)
-    cents[:, 0] = x[lanes, start]
-    mind = torch.where(valid_n, _dis_to(xi, xi[lanes, start]), -1)
-    mind[lanes, start] = -1
-    for i in range(1, k):
-        far = torch.argmax(mind, dim=1)          # first maximum
-        cents[:, i] = x[lanes, far]
-        nd = _dis_to(xi, xi[lanes, far])
-        mind = torch.where(valid_n, torch.minimum(mind, nd), -1)
-        mind[lanes, far] = -1
+    g, a = sh.xs[0].shape[0], sh.xs[0].shape[2]
+    cents = torch.zeros((g, k, a), dtype=torch.uint8, device=sh.dev)
+    far = start
+    mind = None
+    for i in range(k):
+        p = sh.fetch(far)
+        cents[:, i] = p
+        nd = [_dis_to(xi, p.to(xi.device, torch.int32)) for xi in sh.xi]
+        mind = [torch.where(v, d if m is None else torch.minimum(m, d), -1)
+                for v, d, m in zip(sh.valid, nd, mind or [None] * len(nd))]
+        sh.mask(mind, far)
+        if i + 1 < k:
+            far = sh.first_argmax(mind)          # first maximum
     return cents
 
 
@@ -165,79 +241,109 @@ class _Broadcast:
         return counts.reshape(g, k, a, m)
 
 
-def _solve(x: torch.Tensor, valid_n, valid_k, start, m: int):
-    """One batched solve: x [G,n,A] uint8. Returns (labels [G,n],
-    winner [G,k] (negative = empty cluster), iters [G], cost [G])."""
-    g, n, a = x.shape
+def _solve(sh: _Shards, valid_k, start, m: int, max_iters: int):
+    """One batched solve over the points of `sh`. Returns (labels [G,n],
+    centroids [G,k,A], winner [G,k] (negative = empty cluster), iters
+    [G], cost [G]), on the first range's device."""
+    g, a = sh.xs[0].shape[0], sh.xs[0].shape[2]
+    n = sum(x.shape[1] for x in sh.xs)
     k = valid_k.shape[1]
-    lanes = torch.arange(g, device=x.device)
-    xi = x.to(torch.int32)
-    cents = _farthest_first(x, xi, k, valid_n, start)
-    enc = _Encodings(xi, m) if _matmul_bytes(n, k, m, a) <= _SOLVE_BYTES \
-        else _Broadcast(xi, m)
-    kr = torch.arange(k, device=x.device)
+    dev = sh.dev
+    cents = _farthest_first(sh, k, start)
+    kind = _Encodings if _matmul_bytes(n, k, m, a) <= _SOLVE_BYTES \
+        else _Broadcast
+    encs = [kind(xi, m) for xi in sh.xi]
+    vk = [valid_k.to(x.device) for x in sh.xs]
+    krs = [torch.arange(k, device=x.device) for x in sh.xs]
 
     def assign(cents):
-        lab, dmin = enc.assign(cents, valid_k)       # first minimum
+        out = [enc.assign(cents.to(v.device), v_k)        # first minimum
+               for enc, v, v_k in zip(encs, sh.valid, vk)]
         # the exact total; the JAX package's normalized (hi, mid, lo)
         # int32 digit triple is its mixed-radix form, so they order alike
-        cost = torch.sum(torch.where(valid_n, dmin, 0).long(), dim=1)
-        return lab, cost
+        cost = sh.total([torch.sum(torch.where(v, dmin, 0).long(), dim=1)
+                         for v, (_, dmin) in zip(sh.valid, out)])
+        return [lab for lab, _ in out], cost
 
     def update(cents, labels):
-        lab1h = (labels[:, :, None] == kr) & valid_n[:, :, None]
-        new_c = torch.argmax(enc.counts(lab1h, labels, valid_n), dim=3) \
-            .to(torch.uint8)
-        empty = (torch.sum(lab1h, dim=1) == 0) & valid_k
-        own = torch.gather(new_c, 1, labels[:, :, None].expand(-1, -1, a))
-        d_own = torch.sum(torch.abs(xi - own.to(torch.int32)), dim=2,
+        lab1h = [(lab[:, :, None] == kr) & v[:, :, None]
+                 for lab, kr, v in zip(labels, krs, sh.valid)]
+        # category counts are integers below 2^24: exact in f32 however
+        # the ranges are summed
+        counts = sh.total([enc.counts(oh, lab, v) for enc, oh, lab, v in
+                           zip(encs, lab1h, labels, sh.valid)])
+        new_c = torch.argmax(counts, dim=3).to(torch.uint8)
+        members = sh.total([torch.sum(oh, dim=1) for oh in lab1h])
+        empty = (members == 0) & valid_k
+        d_own = []
+        for xi, lab, v in zip(sh.xi, labels, sh.valid):
+            own = torch.gather(new_c.to(xi.device), 1,
+                               lab[:, :, None].expand(-1, -1, a))
+            d = torch.sum(torch.abs(xi - own.to(torch.int32)), dim=2,
                           dtype=torch.int32)
-        worst = torch.argmax(torch.where(valid_n, d_own, -1), dim=1)
-        return torch.where(empty[:, :, None], x[lanes, worst][:, None, :],
-                           new_c)
+            d_own.append(torch.where(v, d, -1))
+        worst = sh.fetch(sh.first_argmax(d_own))
+        return torch.where(empty[:, :, None], worst[:, None, :], new_c)
 
     labels, cost = assign(cents)
     prev_cost = torch.full_like(cost, torch.iinfo(torch.int64).max)
-    moves = torch.ones(g, dtype=torch.int64, device=x.device)
-    iters = torch.zeros(g, dtype=torch.int64, device=x.device)
-    active = torch.ones(g, dtype=torch.bool, device=x.device)
+    moves = torch.ones(g, dtype=torch.int64, device=dev)
+    iters = torch.zeros(g, dtype=torch.int64, device=dev)
+    active = torch.ones(g, dtype=torch.bool, device=dev)
     while True:
         active = active & (cost < prev_cost) & (moves > 0) \
-            & (iters < _MAX_ITERS)
+            & (iters < max_iters)
         if not bool(active.any()):
             break
         new_cents = update(cents, labels)
         new_labels, new_cost = assign(new_cents)
-        new_moves = torch.sum((new_labels != labels) & valid_n, dim=1)
+        new_moves = sh.total([torch.sum((nl != lab) & v, dim=1) for
+                              nl, lab, v in zip(new_labels, labels,
+                                                sh.valid)])
         cents = torch.where(active[:, None, None], new_cents, cents)
         prev_cost = torch.where(active, cost, prev_cost)
         cost = torch.where(active, new_cost, cost)
-        labels = torch.where(active[:, None], new_labels, labels)
+        labels = [torch.where(active.to(nl.device)[:, None], nl, lab)
+                  for nl, lab in zip(new_labels, labels)]
         moves = torch.where(active, new_moves, moves)
         iters = iters + active.long()
     cents = update(cents, labels)
     labels, cost = assign(cents)
-    return labels, _winner_from(x, xi, valid_n, labels, cents), iters, cost
+    return sh.cat(labels), cents, _winner_from(sh, labels, cents), iters, \
+        cost
 
 
-def _winner_from(x, xi, valid_n, labels, cents):
+def _winner_from(sh: _Shards, labels: list, cents):
     """Per-cluster winner: the member with the smallest dissimilarity to
     its centroid, LAST index on ties (kmodes.pas:598-612); -1 for a
     cluster with no members."""
-    g, n, a = x.shape
-    k = cents.shape[1]
-    ci = torch.gather(cents, 1, labels[:, :, None].expand(-1, -1, a))
-    ci = ci.to(torch.int32)
-    d = (torch.sum(xi != ci, dim=2, dtype=torch.int32) << _BITS) \
-        + torch.sum(torch.abs(xi - ci), dim=2, dtype=torch.int32)
-    d = torch.where(valid_n, d, _BIG).long()
-    seg = (labels + k * torch.arange(g, device=x.device)[:, None]).reshape(-1)
-    dmin = torch.full((g * k,), _BIG, dtype=torch.int64, device=x.device)
-    dmin.scatter_reduce_(0, seg, d.reshape(-1), reduce='amin')
-    ismin = valid_n.reshape(-1) & (d.reshape(-1) == dmin[seg])
-    iota = torch.arange(n, device=x.device).repeat(g)
-    win = torch.full((g * k,), -1, dtype=torch.int64, device=x.device)
-    win.scatter_reduce_(0, seg, torch.where(ismin, iota, -1), reduce='amax')
+    g, k, a = cents.shape
+    ds, segs = [], []
+    dmin = None
+    for xi, lab, v in zip(sh.xi, labels, sh.valid):
+        ci = torch.gather(cents.to(xi.device), 1,
+                          lab[:, :, None].expand(-1, -1, a)).to(torch.int32)
+        d = (torch.sum(xi != ci, dim=2, dtype=torch.int32) << _BITS) \
+            + torch.sum(torch.abs(xi - ci), dim=2, dtype=torch.int32)
+        d = torch.where(v, d, _BIG).long().reshape(-1)
+        seg = (lab + k * torch.arange(g, device=xi.device)[:, None]) \
+            .reshape(-1)
+        part = torch.full((g * k,), _BIG, dtype=torch.int64, device=xi.device)
+        part.scatter_reduce_(0, seg, d, reduce='amin')
+        dmin = part.to(sh.dev) if dmin is None \
+            else torch.minimum(dmin, part.to(sh.dev))
+        ds.append(d)
+        segs.append(seg)
+    win = None
+    for s, (d, seg, v) in enumerate(zip(ds, segs, sh.valid)):
+        ismin = v.reshape(-1) & (d == dmin.to(d.device)[seg])
+        iota = (torch.arange(v.shape[1], device=d.device)
+                + sh.lo[s]).repeat(g)
+        part = torch.full((g * k,), -1, dtype=torch.int64, device=d.device)
+        part.scatter_reduce_(0, seg, torch.where(ismin, iota, -1),
+                             reduce='amax')
+        win = part.to(sh.dev) if win is None \
+            else torch.maximum(win, part.to(sh.dev))
     return win.reshape(g, k)
 
 
@@ -260,7 +366,9 @@ def golden_ratio_starts(n: int, num_init: int) -> list[int]:
 
 def kmodes_batch_gather(sigs: torch.Tensor, bins_sel: list[np.ndarray],
                         bins_k: list[int], bins_start: list[int],
-                        n_modalities: int, iters_out: list | None = None):
+                        n_modalities: int, max_iters: int = _MAX_ITERS,
+                        iters_out: list | None = None,
+                        need_cents: bool = False, devices=None):
     """Solve one KModes problem per bin against the device signature
     matrix sigs [A_rows, A] uint8: bin i clusters rows bins_sel[i] into
     bins_k[i] groups, farthest-first from local row bins_start[i] >= 0,
@@ -271,9 +379,13 @@ def kmodes_batch_gather(sigs: torch.Tensor, bins_sel: list[np.ndarray],
     Every (bin, start) pair is a lane; lanes are grouped into batched
     solves, smallest first, so that each solve's temporaries stay within
     _SOLVE_BYTES (_lane_bytes per lane at the solve's padded sizes).
+    `devices` (a list of torch devices, the mesh's) cuts every solve's
+    points into that many contiguous ranges, one on each device, with the
+    same labels, centroids and winners as one range on sigs' device.
 
     Returns [(labels [n_i] int64 np, winner [k_i] np local member
-    indices, negative for an empty cluster)]."""
+    indices, negative for an empty cluster)], with the centroids [k_i, A]
+    uint8 np between the two when need_cents."""
     dev = sigs.device
     a = int(sigs.shape[1])
     exp_bin, exp_start = [], []
@@ -309,23 +421,33 @@ def kmodes_batch_gather(sigs: torch.Tensor, bins_sel: list[np.ndarray],
             valid_n[j, :len(bins_sel[i])] = True
             valid_k[j, :bins_k[i]] = True
         x = sigs[torch.from_numpy(idxmat).to(dev)]
+        vn = torch.from_numpy(valid_n).to(dev)
+        cuts = np.array_split(np.arange(n_pad), len(devices or [dev]))
+        to = [d for d, c in zip(devices or [dev], cuts) if len(c)]
+        cuts = [c for c in cuts if len(c)]
+        sh = _Shards([x[:, c[0]:c[-1] + 1].to(d) for c, d in zip(cuts, to)],
+                     [vn[:, c[0]:c[-1] + 1].to(d) for c, d in zip(cuts, to)])
         start = torch.tensor([exp_start[e] for e in lanes],
                              dtype=torch.int64, device=dev)
-        labels, winner, iters, cost = _solve(
-            x, torch.from_numpy(valid_n).to(dev),
-            torch.from_numpy(valid_k).to(dev), start, n_modalities)
+        labels, cents, winner, iters, cost = _solve(
+            sh, torch.from_numpy(valid_k).to(dev), start, n_modalities,
+            max_iters)
         labels = labels.cpu().numpy()
+        cents = cents.cpu().numpy()
         winner = winner.cpu().numpy()
         iters = iters.cpu().numpy()
         cost = cost.cpu().numpy()
         for j, (e, i) in enumerate(zip(lanes, bins)):
             results[e] = (labels[j, :len(bins_sel[i])],
-                          winner[j, :bins_k[i]], int(cost[j]))
+                          cents[j, :bins_k[i]], winner[j, :bins_k[i]],
+                          int(cost[j]))
             if iters_out is not None:
                 iters_out.append((len(bins_sel[i]), bins_k[i],
                                   int(iters[j])))
     out: list = [None] * len(bins_sel)
     for e, i in enumerate(exp_bin):     # lanes in start order per bin
-        if out[i] is None or results[e][2] < out[i][2]:
+        if out[i] is None or results[e][3] < out[i][3]:
             out[i] = results[e]
-    return [(lab, win) for lab, win, _cost in out]
+    if need_cents:
+        return [(lab, cen, win) for lab, cen, win, _cost in out]
+    return [(lab, win) for lab, _cen, win, _cost in out]

@@ -24,7 +24,8 @@ the sources in this package, into build/tiler_tpu_torch/ at the
 repository root (one nvcc per source, started together), and loaded with
 ctypes. `LAUNCHES`, `LAUNCHES_PREP`, `LAUNCHES_AUG`, `LAUNCHES_BF16` and
 `LAUNCHES_BF16_PREP` count each kernel's launches (and nothing else), so
-a run can show that its path went through the kernels.
+a run can show that its path went through the kernels; host threads that
+share a card (parallel.gop_exact) update them under a lock.
 """
 from __future__ import annotations
 
@@ -66,6 +67,7 @@ _BQ_BF16, _BC_BF16, _KC_BF16 = 256, 128, 64
 # four K-chunks of the 256-query tile fit beside the ring
 _MAX_DIM_BF16 = 256
 _lock = threading.Lock()
+_count_lock = threading.Lock()   # the LAUNCHES* updates
 _lib = None       # libnn1.so: K1, its augmented mode and the prepare
 _lib_bf16 = None  # libnn1_bf16.so
 
@@ -202,6 +204,13 @@ def _load_bf16():
     return _lib_bf16
 
 
+def _count(name: str, n: int) -> None:
+    """Add n to the launch counter `name` under a lock: host threads
+    that share a card launch concurrently."""
+    with _count_lock:
+        globals()[name] += n
+
+
 def _check_operand(x: torch.Tensor) -> None:
     if x.dim() != 2:
         raise ValueError('nearest_1 takes 2-D [Q,D] queries and [C,D] '
@@ -318,7 +327,6 @@ def nn1_prepare_plain(c: torch.Tensor) -> Prepared:
 def prepare(c: torch.Tensor) -> Prepared:
     """Candidates [C, D] f32 -> Prepared, once per candidate set: the
     prepare kernel on the card, nn1_prepare_plain on the CPU."""
-    global LAUNCHES_PREP
     _check_operand(c)
     n_c, dim = c.shape
     if n_c == 0:
@@ -337,7 +345,7 @@ def prepare(c: torch.Tensor) -> Prepared:
     if rc != 0:
         raise RuntimeError(f'nn1_prepare kernel launch failed: cudaError '
                            f'{rc}')
-    LAUNCHES_PREP += 1
+    _count('LAUNCHES_PREP', 1)
     return Prepared(ct, n_c, dim)
 
 
@@ -428,7 +436,6 @@ def nearest_1(q: torch.Tensor, c):
     lexicographic minimum of (distance, index). CUDA tensors go through
     the kernels (prepare first for raw rows), CPU tensors through
     nearest_1_plain."""
-    global LAUNCHES
     if isinstance(c, Prepared):
         _check_prepared(q, c)
         if q.device.type == 'cpu':
@@ -443,7 +450,7 @@ def nearest_1(q: torch.Tensor, c):
             return nearest_1_plain(q, c)
         prep = prepare(c)
     idx, err, launched = _range_launch(_load().tiler_nn1, q, prep)
-    LAUNCHES += launched
+    _count('LAUNCHES', launched)
     return idx, err
 
 
@@ -477,14 +484,13 @@ def nearest_1_aug(q: torch.Tensor, c: torch.Tensor):
     width D + 8 rows, and |q|^2 is added to the winning score. CUDA
     tensors go through the kernel's augmented mode, CPU tensors through
     nearest_1_aug_plain. Returns (idx [Q] int32, err [Q] float32)."""
-    global LAUNCHES_AUG
     _check(q, c)
     if q.device.type == 'cpu':
         return nearest_1_aug_plain(q, c)
     qa, ca, q2 = augment(q, c)
     idx, score, launched = _range_launch(_load().tiler_nn1_aug, qa,
                                          prepare(ca))
-    LAUNCHES_AUG += launched
+    _count('LAUNCHES_AUG', launched)
     return idx, score + q2
 
 
@@ -584,7 +590,6 @@ def nn1_bf16_prepare_plain(c: torch.Tensor) -> PreparedBf16:
 def prepare_bf16(c: torch.Tensor) -> PreparedBf16:
     """Candidates [C, D] f32 -> PreparedBf16, once per candidate set: the
     bf16 prepare kernel on the card, nn1_bf16_prepare_plain on the CPU."""
-    global LAUNCHES_BF16_PREP
     _check_operand(c)
     n_c, dim = c.shape
     if n_c == 0:
@@ -604,7 +609,7 @@ def prepare_bf16(c: torch.Tensor) -> PreparedBf16:
     if rc != 0:
         raise RuntimeError(f'nn1_bf16_prepare kernel launch failed: '
                            f'cudaError {rc}')
-    LAUNCHES_BF16_PREP += 1
+    _count('LAUNCHES_BF16_PREP', 1)
     return prep
 
 
@@ -620,7 +625,6 @@ def nearest_1_bf16(q: torch.Tensor, c):
     the lexicographic minimum of (distance, index). CUDA tensors go
     through the kernels (prepare_bf16 first for raw rows), CPU tensors
     through nearest_1_bf16_plain."""
-    global LAUNCHES_BF16
     if isinstance(c, PreparedBf16):
         _check_prepared(q, c)
         if q.device.type == 'cpu':
@@ -639,5 +643,5 @@ def nearest_1_bf16(q: torch.Tensor, c):
         prep = prepare_bf16(c)
     idx, err, launched = _range_launch(_load_bf16().tiler_nn1_bf16, q, prep,
                                        _BQ_BF16, _BC_BF16)
-    LAUNCHES_BF16 += launched
+    _count('LAUNCHES_BF16', launched)
     return idx, err

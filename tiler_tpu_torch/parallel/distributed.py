@@ -1,18 +1,48 @@
-"""GOP sharding across hosts, in process: the counterpart of the three
-functions of tiler_tpu/parallel/distributed.py that need no mesh and no
-collective.
+"""Multi-process orchestration and GOP sharding across hosts: the
+counterpart of tiler_tpu/parallel/distributed.py.
 
-Keyframe spans (GOPs) are distributed across `n_hosts` workers balanced by
-frame count; each worker encodes its GOPs independently (its own tileset
-and palettes) and host 0 concatenates the per-GOP command streams into
-one GTM (all file I/O stays on host 0, like the reference's single
-writer, main.pas:4529). Here the workers run one after the other on one
-device, which gives the multi-host bytes by construction. Joining real
-processes into one job belongs to the multi-device part of the port.
+init_distributed joins this process to a torch.distributed job (gloo:
+the payloads are host numpy arrays), the counterpart of
+jax.distributed.initialize. Keyframe spans (GOPs) are distributed across
+`n_hosts` workers balanced by frame count. In encode_gop_sharded each
+worker encodes its GOPs independently (its own tileset and palettes) and
+host 0 concatenates the per-GOP command streams into one GTM (all file
+I/O stays on host 0, like the reference's single writer, main.pas:4529);
+here the workers run one after the other on one device, which gives the
+multi-host bytes by construction. The exact shared-tileset form is
+parallel.gop_exact.
 """
 from __future__ import annotations
 
+import datetime
+import os
+
 import numpy as np
+
+# seconds a process waits to join the job, and at each gather of it
+DIST_TIMEOUT = 600
+
+
+def init_distributed(coordinator: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None) -> None:
+    """Join a torch.distributed job (backend gloo) from the arguments or
+    the environment (TILER_COORDINATOR=host:port, TILER_NUM_PROCESSES,
+    TILER_PROCESS_ID). Rank 0 listens on the coordinator's port. No-op
+    without a coordinator (a single process)."""
+    import torch.distributed as dist
+    coordinator = coordinator or os.environ.get('TILER_COORDINATOR')
+    if coordinator is None:
+        return
+    if num_processes is None:
+        num_processes = int(os.environ['TILER_NUM_PROCESSES'])
+    if process_id is None:
+        process_id = int(os.environ['TILER_PROCESS_ID'])
+    if '://' not in coordinator:
+        coordinator = f'tcp://{coordinator}'
+    dist.init_process_group(
+        'gloo', init_method=coordinator, world_size=num_processes,
+        rank=process_id, timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
 
 
 def assign_gops_to_hosts(keyframes: np.ndarray, n_hosts: int) -> np.ndarray:

@@ -5,7 +5,10 @@ and k-means into palette_count groups (prepare); DL3 (native) or VAR
 (host numpy) per group on the host in a worker thread (quantize),
 overlapping the next keyframe's prepare; sort palettes by use (finish);
 then the Knoll or Yliluoma scan over every active tile and the mirror
-canonicalization, both on the device.
+canonicalization, both on the device. The prepare's feature rows and
+k-means assignment and the Knoll scan's row-parallel halves are cut
+across the state's mesh (parallel.mesh_pipeline.map_rows; the same bytes
+at any shard count); Yliluoma stays on the mesh's first device.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ import torch
 from ..constants import TILE_W, palette_pattern
 
 from ..ops import dither, features, palette
-from ..ops.kmeans import kmeans_core
+from ..ops.kmeans import _assign, kmeans_core
+from ..parallel.mesh_pipeline import map_rows
 from .state import EncoderState
 
 
@@ -28,21 +32,32 @@ def _dithering_gamma(cfg):
     return cfg.encoder_gamma if cfg.dithering_gamma else None
 
 
+def _lab_features(idx: torch.Tensor, src: torch.Tensor, gamma_value,
+                 use_wavelets: bool) -> torch.Tensor:
+    return features.psyv_features_rgb(src[idx], gamma_value=gamma_value,
+                                      use_lab=True, use_wavelets=use_wavelets)
+
+
 def prepare_dither_keyframe(state: EncoderState, k: int) -> None:
     """PsyV(LAB) features of every tile keyframe k references, clustered
     into palette_count groups (PrepareDitherTiles): writes the labels to
-    tile_dpi and the centroids to palette_centroids[k]."""
+    tile_dpi and the centroids to palette_centroids[k]. The feature rows
+    and the k-means assignment are cut across the state's mesh; the
+    seeding and the centroid update run on the gathered features."""
     cfg = state.config
     s, e = state.keyframes[k]
     cell_tiles = state.tm_tile[s:e + 1].ravel()
     n = len(cell_tiles)
     if n > 1 and cfg.palette_count > 1:
-        idx = torch.from_numpy(cell_tiles.astype(np.int64)).to(state.device)
-        feats = features.psyv_features_rgb(
-            state.device_source_tiles()[idx],
-            gamma_value=_dithering_gamma(cfg), use_lab=True,
-            use_wavelets=cfg.use_wavelets)
-        labels_d, cents_d, _ = kmeans_core(feats, cfg.palette_count)
+        mesh = state.mesh
+        feats = map_rows(mesh, _lab_features,
+                         torch.from_numpy(cell_tiles.astype(np.int64)),
+                         state.device_source_tiles(), _dithering_gamma(cfg),
+                         cfg.use_wavelets)
+        labels_d, cents_d, _ = kmeans_core(
+            feats, cfg.palette_count,
+            assign=lambda x, x2, cents: map_rows(mesh, _assign, (x, x2),
+                                                 cents))
         labels = labels_d.cpu().numpy()
         state.palette_centroids[k] = cents_d.cpu().numpy()
     else:
@@ -126,7 +141,9 @@ def run_dither(state: EncoderState) -> EncoderState:
     'quantize' the blocked wait on the quantizers, 'dither' the scans."""
     cfg = state.config
     if cfg.use_thomas_knoll:
-        dither_cached = dither.knoll_dither_tiles_cached
+        dither_cached = functools.partial(
+            dither.knoll_dither_tiles_cached,
+            map_rows=functools.partial(map_rows, state.mesh))
     else:
         dither_cached = functools.partial(
             dither.yliluoma_dither_tiles_cached,

@@ -1,10 +1,14 @@
 """Encoder orchestrator: the counterpart of tiler_tpu/pipeline/encoder.py.
 
 Runs Load -> Dither -> MakeUnique -> GlobalTiling -> FrameTiling ->
-Reindex -> Smooth -> Save on one device, honouring the config's
-start/end steps, with the JAX package's `step_times` and metric keys.
-Each step's time ends with a device synchronize, so it is the step's
-wall time on the card and not its enqueue time.
+Reindex -> Smooth -> Save with the frame-axis-parallel stages cut across
+a mesh (parallel.mesh_pipeline; the same bytes at any shard count; one
+device is its 1-shard mesh),
+honouring the config's start/end steps, with the JAX package's
+`step_times` and metric keys but for its tunnel counters
+(`dispatches`, `upload_changed_frac`). Each step's time ends with a
+device synchronize, so it is the step's wall time on the card and not
+its enqueue time.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 
 from ..config import EncoderConfig
 from ..constants import ENCODER_STEPS, equal_quality_tile_count
+from ..parallel.mesh import check_device
 from ..utils.progress import StepProgress
 
 from .state import EncoderState
@@ -31,10 +36,21 @@ def resolve_device(device) -> torch.device:
 
 
 class Encoder:
-    def __init__(self, config: EncoderConfig | None = None, device='cuda'):
+    def __init__(self, config: EncoderConfig | None = None, device='cuda',
+                 mesh=None):
+        """mesh: optional parallel.mesh.Mesh (make_mesh) of devices of
+        `device`'s type (else ValueError). The state then lives on the
+        mesh's first device, and the frame-axis-parallel stages cut their
+        rows across the mesh with a byte-identical output stream
+        (parallel.mesh_pipeline); without one, they run on the 1-shard
+        mesh of `device`."""
         self.config = config or EncoderConfig()
         self.device = resolve_device(device)
-        self.state = EncoderState(config=self.config, device=self.device)
+        if mesh is not None:
+            check_device(mesh, self.device)
+            self.device = mesh.flat[0]
+        self.state = EncoderState(config=self.config, device=self.device,
+                                  mesh=mesh)
         first = ENCODER_STEPS.index(self.config.start_step)
         last = ENCODER_STEPS.index(self.config.end_step)
         self.progress = StepProgress(ENCODER_STEPS[first:last + 1])
@@ -99,7 +115,44 @@ class Encoder:
                 getattr(self, step)()
             if step_hook is not None:
                 step_hook(step)
+        self._sharded_wall_metric()
         return blob
+
+    def _sharded_wall_metric(self) -> None:
+        """Fraction of the device wall clock spent in mesh-shardable
+        stages (the Amdahl number for multi-device scaling): sharded =
+        dither prepare+scan, FrameTiling mark/feats/assign, smooth,
+        MakeUnique (the step and GlobalTiling's rerun) and the GT
+        signature build (+ the KModes solve under mesh_kmodes, reported
+        separately as frac_with_kmodes); the device wall excludes the
+        host-only phases (load, save, the DL3/VAR quantize pool, the
+        KModes merge). Computed on every run: on one device it is the
+        coverage the mesh path would shard, on a mesh the measured one."""
+        st, m = self.state.step_times, self.state.metrics
+        dp = m.get('dither_phases') or {}
+        gp = m.get('gt_phases') or {}
+        fp = m.get('ft_phases') or {}
+        sharded = (dp.get('prepare_kmeans', 0.0) + dp.get('dither', 0.0)
+                   + fp.get('mark', 0.0) + fp.get('cand_feats', 0.0)
+                   + fp.get('assign', 0.0) + st.get('smooth', 0.0)
+                   + st.get('make_unique', 0.0)
+                   + gp.get('gt_unique', 0.0)
+                   + gp.get('sigs_bins', 0.0))
+        device_wall = (st.get('dither', 0.0) - dp.get('quantize', 0.0)
+                       + st.get('make_unique', 0.0)
+                       + st.get('global_tiling', 0.0)
+                       - gp.get('merge_host', 0.0)
+                       + st.get('frame_tiling', 0.0)
+                       + st.get('smooth', 0.0) + st.get('reindex', 0.0))
+        m['mesh_sharded_wall'] = {
+            'sharded_s': round(sharded, 3),
+            'device_wall_s': round(device_wall, 3),
+            'frac': round(sharded / max(device_wall, 1e-9), 3),
+            'frac_with_kmodes': round(
+                (sharded + gp.get('solve', 0.0))
+                / max(device_wall, 1e-9), 3),
+            'measured_on_mesh': self.state.mesh.size > 1,
+            'mesh_kmodes': bool(self.config.mesh_kmodes)}
 
     # -- internals ----------------------------------------------------------
 

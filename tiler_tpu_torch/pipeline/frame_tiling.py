@@ -16,7 +16,9 @@ Three bulk phases:
      walked by every query chunk; unchanged cells are forward-filled
      from the previous frame.
 Candidate order is np.nonzero(used)'s row-major order in both stage-2
-paths, so stage-3 ties resolve as in the JAX package.
+paths, so stage-3 ties resolve as in the JAX package. Each phase's rows
+are cut across the state's mesh (parallel.mesh_pipeline.map_rows), every
+shard running the functions below on its range, with the same bytes.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from ..config import FTQuality
 from ..constants import TILE_DCT_SIZE, TILE_W
 
 from ..ops import features, knn, nn_kernels
+from ..parallel.mesh_pipeline import map_rows, replicate
 from .load import changed_mask
 from .state import EncoderState
 
@@ -107,11 +110,11 @@ def palette_similarity_mask(state: EncoderState, k: int) -> np.ndarray:
 
 # -- stage 2: candidate-combo PsyV features -------------------------------
 
-def _chunk_feats(state, tiles_pal_d, pals_d, tiles, pal, hm, vm):
-    """PsyV features of combos (tile, palette, mirrors) as
-    device gathers, in chunks; host index arrays in, [N,192] out."""
-    cfg = state.config
-    dev = state.device
+def _chunk_feats(tiles, pal, hm, vm, tiles_pal_d, pals_d, cfg):
+    """PsyV features of combos (tile, palette, mirrors) as device
+    gathers on the tiles' device, in chunks; host index arrays in,
+    [N,192] out."""
+    dev = tiles_pal_d.device
     out = torch.empty((len(tiles), TILE_DCT_SIZE), dtype=torch.float32,
                       device=dev)
     for lo in range(0, len(tiles), _FEAT_CHUNK):
@@ -142,6 +145,10 @@ def candidate_features(state: EncoderState, k: int, used, tile_of,
     tiles_pal_d = state.device_tiles_pal()
     pals_d = torch.from_numpy(np.ascontiguousarray(
         state.palettes_rgb[k])).to(dev)
+
+    def chunk_feats(*rows):
+        return map_rows(state.mesh, _chunk_feats, rows, tiles_pal_d, pals_d,
+                        cfg)
     pp = features.mirror_coeff_perms(cfg.use_wavelets)
     pal_idx, dentry = np.nonzero(used)
     pal_idx = pal_idx.astype(np.int64)
@@ -153,8 +160,7 @@ def candidate_features(state: EncoderState, k: int, used, tile_of,
         round(c / max(len(uq), 1), 3))
     if pp is not None and len(uq) <= 0.5 * c:
         zeros = np.zeros(len(uq), bool)
-        base = _chunk_feats(state, tiles_pal_d, pals_d, uq % n_tiles,
-                            uq // n_tiles, zeros, zeros)
+        base = chunk_feats(uq % n_tiles, uq // n_tiles, zeros, zeros)
         perm4 = torch.from_numpy(pp[0]).to(dev)
         sign4 = torch.from_numpy(pp[1]).to(dev)
         inv_d = torch.from_numpy(inv.astype(np.int64)).to(dev)
@@ -167,23 +173,41 @@ def candidate_features(state: EncoderState, k: int, used, tile_of,
                     * sign4[a][None, :]
         del base
     else:
-        feats = _chunk_feats(state, tiles_pal_d, pals_d, tiles, pal_idx,
-                             (attrs & 1).astype(bool),
-                             (attrs & 2).astype(bool))
+        feats = chunk_feats(tiles, pal_idx, (attrs & 1).astype(bool),
+                            (attrs & 2).astype(bool))
     return (feats, pal_idx.astype(np.int32), tiles.astype(np.int32),
             attrs)
 
 
 # -- stage 3: query features + exact 1-NN ---------------------------------
 
+def assign_rows(rows_d: torch.Tensor, src: torch.Tensor, cands,
+                gamma_value, use_wavelets: bool):
+    """The 1-NN among `cands` (a nn_kernels.Prepared set on src's device)
+    of the PsyV features of source tiles rows_d, in query chunks that give
+    every SM one query tile; the results do not depend on the chunking.
+    Returns (idx, err, kernel calls)."""
+    idx_parts, err_parts = [], []
+    q_chunk = nn_kernels.full_chunk(src.device)
+    for lo in range(0, len(rows_d), q_chunk):
+        q = features.psyv_features_rgb(
+            src[rows_d[lo:lo + q_chunk]], gamma_value=gamma_value,
+            use_wavelets=use_wavelets)
+        idx, err = nn_kernels.nearest_1(q, cands)
+        idx_parts.append(idx)
+        err_parts.append(err)
+    return torch.cat(idx_parts), torch.cat(err_parts), len(idx_parts)
+
+
 def _assign_keyframe(state: EncoderState, k: int, cands, ch_all, src_all):
     """Stage 3 for keyframe k: the 1-NN of each changed cell (all cells
     of the first frame) among the keyframe's combos `cands` (a
-    nn_kernels.Prepared set), forward-filled to the unchanged cells. A
-    query chunk gives every SM one query tile; the results do not depend
-    on the chunking. Returns (best_idx [n_q], best_err [n_q], n_run,
-    kernel calls); a cell byte-identical to the previous frame has the
-    same source tile and so the same nearest combo."""
+    nn_kernels.Prepared set per device of the mesh, as src_all holds the
+    source tiles), the cells cut across the state's mesh, forward-filled
+    to the unchanged cells. Returns (best_idx [n_q], best_err [n_q],
+    n_run, kernel calls per shard, None for a shard without cells); a
+    cell byte-identical to the previous frame has the same source tile
+    and so the same nearest combo."""
     cfg = state.config
     s, e = state.keyframes[k]
     cells = state.tilemap_size
@@ -191,26 +215,18 @@ def _assign_keyframe(state: EncoderState, k: int, cands, ch_all, src_all):
     ch = ch_all[s:e + 1].copy()
     ch[0, :] = True
     changed = np.flatnonzero(ch.ravel())
-    rows_d = torch.from_numpy((s * cells + changed).astype(np.int64)).to(
-        state.device)
-    idx_parts, err_parts = [], []
-    q_chunk = nn_kernels.full_chunk(state.device)
-    for lo in range(0, len(changed), q_chunk):
-        q = features.psyv_features_rgb(
-            src_all[rows_d[lo:lo + q_chunk]], gamma_value=_ft_gamma(cfg),
-            use_wavelets=cfg.use_wavelets)
-        idx, err = nn_kernels.nearest_1(q, cands)
-        idx_parts.append(idx)
-        err_parts.append(err)
-    run_idx = torch.cat(idx_parts).cpu().numpy()
-    run_err = torch.cat(err_parts).cpu().numpy()
+    rows = (s * cells + changed).astype(np.int64)
+    run_idx, run_err, calls = map_rows(
+        state.mesh, assign_rows, torch.from_numpy(rows), src_all, cands,
+        _ft_gamma(cfg), cfg.use_wavelets)
+    run_idx, run_err = run_idx.cpu().numpy(), run_err.cpu().numpy()
     # forward fill: each cell takes the result computed at its most
     # recent changed frame; the fill never crosses a keyframe start
     last = np.maximum.accumulate(
         np.where(ch, np.arange(f_kf)[:, None], -1), axis=0)
     changed_pos = np.cumsum(ch.ravel()) - 1
     fill = changed_pos[(last * cells + np.arange(cells)[None, :]).ravel()]
-    return run_idx[fill], run_err[fill], len(changed), len(idx_parts)
+    return run_idx[fill], run_err[fill], len(changed), calls
 
 
 def run_frame_tiling(state: EncoderState) -> EncoderState:
@@ -223,7 +239,9 @@ def run_frame_tiling(state: EncoderState) -> EncoderState:
     _sync(dev)
     phases['dataset'] = round(time.perf_counter() - t0, 3)
     t0 = time.perf_counter()
-    src_all = state.device_source_tiles()   # resident since Dither
+    mesh = state.mesh
+    # resident since Dither; one copy per device of the mesh
+    src_all = replicate(mesh, state.device_source_tiles())
     _sync(dev)
     phases['upload'] = round(time.perf_counter() - t0, 3)
     ch_all = state.changed_mask if state.changed_mask is not None else \
@@ -235,7 +253,7 @@ def run_frame_tiling(state: EncoderState) -> EncoderState:
     q_idx = torch.from_numpy(np.concatenate([m[0] for m in mark_q])
                              .astype(np.int64)).to(dev)
     queries = state.device_tiles_pal()[q_idx].reshape(len(q_idx), -1)
-    idxs_d, keep_d = knn.nearest_k_keepmask(queries, ds, k=8)
+    idxs_d, keep_d = map_rows(mesh, knn.nearest_k_keepmask, queries, ds, 8)
     idxs_all, keep_all = idxs_d.cpu().numpy(), keep_d.cpu().numpy()
     used_list = []
     off = 0
@@ -254,7 +272,7 @@ def run_frame_tiling(state: EncoderState) -> EncoderState:
     # ---- stages 2+3, one keyframe at a time ----
     t_feats = t_assign = 0.0
     knn_sizes = []
-    nn_calls = 0
+    nn_calls = np.zeros(mesh.size, np.int64)
     q_total = q_changed = 0
     residual = 0.0
     for k in range(n_kf):
@@ -266,12 +284,13 @@ def run_frame_tiling(state: EncoderState) -> EncoderState:
         t_feats += time.perf_counter() - t0
         t0 = time.perf_counter()
         knn_sizes.append(int(feats.shape[0]))
-        cands = nn_kernels.prepare(feats)   # once per keyframe
+        # once per keyframe and device
+        cands = replicate(mesh, feats, nn_kernels.prepare)
         del feats
         best_idx, best_err, n_run, calls = _assign_keyframe(
             state, k, cands, ch_all, src_all)
         del cands
-        nn_calls += calls
+        nn_calls += [c or 0 for c in calls]
         s, e = state.keyframes[k]
         shape = (e - s + 1, state.tilemap_h, state.tilemap_w)
         q_total += best_idx.size
@@ -289,7 +308,9 @@ def run_frame_tiling(state: EncoderState) -> EncoderState:
 
     state.metrics['ft_residual_err'] = residual
     state.metrics['ft_knn_sizes'] = knn_sizes
-    state.metrics['ft_nn_calls'] = nn_calls
+    state.metrics['ft_nn_calls'] = int(nn_calls.sum())
+    if mesh.size > 1:
+        state.metrics['ft_nn_calls_shards'] = nn_calls.tolist()
     state.metrics['ft_q_changed_frac'] = round(
         q_changed / max(q_total, 1), 4)
     state.metrics['ft_phases'] = phases

@@ -9,6 +9,12 @@ restarts), and each cluster merges into its winner. Then the global
 MakeUnique and Reindex run. With a GTS tileset to reload, each active
 tile is replaced by its nearest line of that tileset instead
 (ReloadPreviousTiling), and only MakeUnique follows.
+
+The signature build's rows are cut across the state's mesh, and with
+config.mesh_kmodes the KModes solves' points too (ops.kmodes,
+devices=; bit-identical at any shard count). The
+tileset-level computation has an array-argument form
+(compute_global_tiling_fwd) for the multi-host encode.
 """
 from __future__ import annotations
 
@@ -17,10 +23,11 @@ import time
 import numpy as np
 import torch
 
-from ..bitstream.gtm import read_gts
+from ..bitstream.gtm import read_gts, write_gts
 from ..constants import KMODES_ZONE_COUNT, equal_quality_tile_count
 
 from ..ops.kmodes import kmodes_batch_gather
+from ..parallel.mesh_pipeline import map_rows
 from .reindex import run_reindex
 from .state import EncoderState
 from .unique import run_make_unique
@@ -49,16 +56,23 @@ def pal_signi(tiles_u8: torch.Tensor, palette_size: int) -> torch.Tensor:
     return torch.min(64 - _zone_counts(flat, palette_size), dim=1).values
 
 
+def _signature_rows(idx: torch.Tensor, tiles: torch.Tensor,
+                    palette_size: int):
+    return tile_signatures(tiles, idx, palette_size)
+
+
 def compute_global_tiling_fwd_device(state: EncoderState, cfg,
-                                     desired_tiles: int):
-    """Returns (fwd, new_use, new_active, merges) for the device tiles."""
+                                     desired_tiles: int, kmodes_mesh=None):
+    """Returns (fwd, new_use, new_active, merges) for the device tiles;
+    the KModes solves' points are cut across kmodes_mesh when it is
+    given."""
     phases = {}
     t0 = time.perf_counter()
     n = state.n_tiles
     act = np.flatnonzero(state.tile_active)
-    act_d = torch.from_numpy(act.astype(np.int64)).to(state.device)
-    sigs, sums_d = tile_signatures(state.device_tiles_pal(), act_d,
-                                   cfg.tile_palette_size)
+    sigs, sums_d = map_rows(state.mesh, _signature_rows,
+                            torch.from_numpy(act.astype(np.int64)),
+                            state.device_tiles_pal(), cfg.tile_palette_size)
     sums = sums_d.cpu().numpy()
     dpi = state.tile_dpi[act]
 
@@ -86,8 +100,8 @@ def compute_global_tiling_fwd_device(state: EncoderState, cfg,
     iters: list = []
     solved = kmodes_batch_gather(
         sigs, [j['sel'] for j in jobs], [j['k'] for j in jobs],
-        [j['start'] for j in jobs], cfg.tile_palette_size,
-        iters_out=iters)
+        [j['start'] for j in jobs], cfg.tile_palette_size, iters_out=iters,
+        devices=None if kmodes_mesh is None else kmodes_mesh.flat)
     phases['solve'] = round(time.perf_counter() - t0, 3)
     state.metrics['gt_iters'] = iters
     t0 = time.perf_counter()
@@ -119,17 +133,40 @@ def compute_global_tiling_fwd_device(state: EncoderState, cfg,
     return fwd, new_use, new_active, merges
 
 
-def run_global_tiling(state: EncoderState) -> EncoderState:
+def compute_global_tiling_fwd(tiles_pal: np.ndarray, tile_active: np.ndarray,
+                              tile_use: np.ndarray, tile_dpi: np.ndarray,
+                              cfg, desired_tiles: int, mesh=None,
+                              device='cuda'):
+    """compute_global_tiling_fwd_device over GLOBAL host arrays (uploaded
+    to `device`), the KModes solves sharded across `mesh` when it is
+    given. Deterministic, so every host of a multi-host encode computes
+    the identical map from the allgathered tileset (parallel.gop_exact).
+    Returns (fwd, new_use, new_active, merges)."""
+    st = EncoderState(config=cfg, device=torch.device(device))
+    st.tiles_pal, st.tile_active, st.tile_use, st.tile_dpi = \
+        tiles_pal, tile_active, tile_use, tile_dpi
+    return compute_global_tiling_fwd_device(st, cfg, desired_tiles,
+                                            kmodes_mesh=mesh)
+
+
+def run_global_tiling(state: EncoderState, desired_tiles: int | None = None,
+                      gts_out: str | None = None) -> EncoderState:
+    """GlobalTiling to desired_tiles (default: max_tiles, or qb_tiles x
+    EqualQualityTileCount of the raw tile count), then MakeUnique and
+    Reindex; gts_out writes the reduced tileset as a GTS file."""
     cfg = state.config
     if cfg.reload_tileset:
         return run_reload_tiling(state, cfg.reload_tileset)
-    raw = state.n_frames * state.tilemap_size
-    budget = cfg.max_tiles if cfg.max_tiles > 0 else \
-        round(cfg.qb_tiles * equal_quality_tile_count(raw))
-    desired_tiles = min(budget, raw)
+    if desired_tiles is None:
+        raw = state.n_frames * state.tilemap_size
+        budget = cfg.max_tiles if cfg.max_tiles > 0 else \
+            round(cfg.qb_tiles * equal_quality_tile_count(raw))
+        desired_tiles = min(budget, raw)
 
+    # opt-in distributed per-bin KModes; bit-identical either way
+    kmodes_mesh = state.mesh if cfg.mesh_kmodes else None
     fwd, new_use, new_active, merges = compute_global_tiling_fwd_device(
-        state, cfg, desired_tiles)
+        state, cfg, desired_tiles, kmodes_mesh=kmodes_mesh)
     state.tile_use = new_use
     state.tile_active = new_active
     state.tm_tile = fwd[state.tm_tile].astype(np.int32)
@@ -142,6 +179,11 @@ def run_global_tiling(state: EncoderState) -> EncoderState:
     gp['gt_unique'] = round(t1 - t0, 3)
     gp['gt_reindex'] = round(time.perf_counter() - t1, 3)
     gp['unique_reindex'] = round(time.perf_counter() - t0, 3)
+    gp['gt_mu'] = state.metrics.get('mu_phases')
+    if gts_out:
+        n_active = int(state.tile_active.sum())
+        write_gts(gts_out, state.tiles_pal[:n_active],
+                  cfg.tile_palette_size)
     return state
 
 

@@ -8,7 +8,8 @@ tile index wins and is copied across, and the cell is marked smoothed.
 The backward copy overwrites the previous frame's cell including its
 smoothed flag, as the reference does (main.pas:4071-4119). Each
 keyframe's frame chain is a Python loop over frames, vectorised over
-cells on the device.
+cells on the device, the cells cut across the state's mesh
+(parallel.mesh_pipeline.map_rows; the same bytes at any shard count).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 from ..constants import TILE_DCT_SIZE
 
 from ..ops import features
+from ..parallel.mesh_pipeline import map_rows, replicate
 from .state import EncoderState
 
 _SQRT_FACTOR = 1.0 / TILE_DCT_SIZE
@@ -60,6 +62,17 @@ def smooth_chain(feats, tile, pal, hm, vm, strength: float):
     return tuple(torch.stack(o) for o in out)
 
 
+def _smooth_cells(tile, pal, hm, vm, tiles_pal_all, palettes_k,
+                  strength: float):
+    """One keyframe's smooth of the cells tile/pal/hm/vm [F,C]: their
+    features, then smooth_chain."""
+    f, c = tile.shape
+    feats = _cell_features(tiles_pal_all, palettes_k, tile.reshape(-1),
+                           pal.reshape(-1), hm.reshape(-1),
+                           vm.reshape(-1)).reshape(f, c, -1)
+    return smooth_chain(feats, tile, pal, hm, vm, strength)
+
+
 def run_smooth(state: EncoderState) -> EncoderState:
     strength = float(state.config.smoothing_strength)
     cells = state.tilemap_size
@@ -69,7 +82,7 @@ def run_smooth(state: EncoderState) -> EncoderState:
     state.stm_h = state.tm_h.copy()
     state.stm_v = state.tm_v.copy()
     state.stm_smooth = np.zeros_like(state.tm_tile, bool)
-    tiles_dev = state.device_tiles_pal()
+    tiles = replicate(state.mesh, state.device_tiles_pal())
 
     def up(a, s, e, dtype):
         return torch.from_numpy(
@@ -78,19 +91,17 @@ def run_smooth(state: EncoderState) -> EncoderState:
 
     smoothed_cells = 0
     for k, (s, e) in enumerate(state.keyframes):
-        n_f = e - s + 1
-        if n_f < 2:
+        if e - s + 1 < 2:
             continue
-        tile = up(state.tm_tile, s, e, torch.int64)
-        pal = up(state.tm_pal, s, e, torch.int64)
-        hm = up(state.tm_h, s, e, torch.bool)
-        vm = up(state.tm_v, s, e, torch.bool)
+        rows = (up(state.tm_tile, s, e, torch.int64),
+                up(state.tm_pal, s, e, torch.int64),
+                up(state.tm_h, s, e, torch.bool),
+                up(state.tm_v, s, e, torch.bool))
         pals_k = torch.from_numpy(state.palettes_rgb[k]).to(dev)
-        feats = _cell_features(tiles_dev, pals_k, tile.reshape(-1),
-                               pal.reshape(-1), hm.reshape(-1),
-                               vm.reshape(-1)).reshape(n_f, cells, -1)
-        stm = [t.cpu().numpy() for t in
-               smooth_chain(feats, tile, pal, hm, vm, strength)]
+        # every cell's frame chain is independent: the cells are cut
+        stm = [t.cpu().numpy() for t in map_rows(
+            state.mesh, _smooth_cells, rows, tiles, pals_k, strength,
+            dim=1)]
         sh = state.tm_tile[s:e + 1].shape
         state.stm_tile[s:e + 1] = stm[0].reshape(sh)
         state.stm_pal[s:e + 1] = stm[1].reshape(sh)

@@ -22,6 +22,7 @@ import torch
 
 from ..config import EncoderConfig, FTQuality
 from ..constants import TILE_W
+from ..parallel.mesh import Mesh, make_mesh
 
 # the state's array fields, in the JAX package's checkpoint order
 ARRAY_FIELDS = [
@@ -67,9 +68,19 @@ class EncoderState:
     palette_centroids: Optional[np.ndarray] = None
     changed_mask: Optional[np.ndarray] = None
 
+    # the parallel.mesh.Mesh the frame-axis-parallel stages cut their rows
+    # across (parallel.mesh_pipeline.map_rows): Encoder(mesh=...) or the
+    # CLI's --devices N, else the 1-shard mesh of `device`. Not
+    # serialized by checkpoints: callers re-attach it after a load.
+    mesh: Mesh = dataclasses.field(default=None, repr=False)
+
     step_times: dict = dataclasses.field(default_factory=dict)
     metrics: dict = dataclasses.field(default_factory=dict)
     _src_tiles: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        if self.mesh is None:
+            self.mesh = make_mesh(devices=[self.device])
 
     def device_source_tiles(self) -> torch.Tensor:
         """[F*TH*TW, 8, 8, 3] uint8 source tiles on the device, in

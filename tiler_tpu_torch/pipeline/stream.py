@@ -93,12 +93,15 @@ class OnlineKeyframeDetector:
         return starts
 
 
-def _encode_gop(config, gop_frames: np.ndarray, fps: float, device='cuda'):
+def _encode_gop(config, gop_frames: np.ndarray, fps: float, device='cuda',
+                mesh=None):
     """One GOP as an independent single-keyframe encode (the
-    parallel.distributed.encode_gop_partition body) on `device`. The
-    returned state holds host arrays only."""
+    parallel.distributed.encode_gop_partition body) on `device`; mesh
+    shards the frame-axis-parallel stages (byte-identical,
+    parallel.mesh_pipeline) and then stands for the device. The returned
+    state holds host arrays only."""
     from .encoder import Encoder
-    enc = Encoder(config, device=device)
+    enc = Encoder(config, device=device, mesh=mesh)
     enc.load(gop_frames, fps=fps)
     enc.state.keyframes = np.array([[0, len(gop_frames) - 1]], np.int32)
     enc.dither()
@@ -195,17 +198,18 @@ def _kf_info(kf_index: int, start: int, raw: bytes, comp: bytes,
 
 def encode_streaming(frames_iter, config, out_path: str, fps: float = 24.0,
                      fast_lzma: bool = False, chunk: int = 64,
-                     device='cuda') -> dict:
+                     device='cuda', mesh=None) -> dict:
     """Encode an iterator/iterable of [H,W,3] uint8 frames to out_path
     with bounded memory (see module docstring for the two container
-    modes), every GOP on `device`. Returns metrics (n_frames,
-    n_keyframes, gtm_bytes, max_buffered_frames, and ft_nn_calls: the
-    1-NN launches of each GOP's FrameTiling)."""
+    modes), every GOP on `device`, or sharded across `mesh` (stream
+    bytes unchanged). Returns metrics (n_frames, n_keyframes, gtm_bytes,
+    max_buffered_frames, and ft_nn_calls: the 1-NN launches of each
+    GOP's FrameTiling)."""
     from .encoder import resolve_device
     device = resolve_device(device)
     if config.reload_tileset:
         return _encode_streaming_reload(frames_iter, config, out_path,
-                                        fps, fast_lzma, chunk, device)
+                                        fps, fast_lzma, chunk, device, mesh)
     state = dict(kf=0, tiles=0, gop0=None)
     infos: list[GTMKeyFrameInfo] = []
     kf_counts: list[int] = []
@@ -213,7 +217,7 @@ def encode_streaming(frames_iter, config, out_path: str, fps: float = 24.0,
     dims = {}
 
     def process_gop(tmp, gop, start, end):
-        st, n_act = _encode_gop(config, gop, fps, device)
+        st, n_act = _encode_gop(config, gop, fps, device, mesh)
         nn_calls.append(int(st.metrics.get('ft_nn_calls', 0)))
         dims.setdefault('w', st.screen_w)
         dims.setdefault('h', st.screen_h)
@@ -270,7 +274,7 @@ def encode_streaming(frames_iter, config, out_path: str, fps: float = 24.0,
 
 def _encode_streaming_reload(frames_iter, config, out_path: str,
                              fps: float, fast_lzma: bool, chunk: int,
-                             device) -> dict:
+                             device, mesh=None) -> dict:
     """Streaming encode against a FIXED global tileset (see module
     docstring): the scaled GTS is emitted once, every GOP's tilemap maps
     onto its indices, no per-GOP tileset segments."""
@@ -290,7 +294,7 @@ def _encode_streaming_reload(frames_iter, config, out_path: str,
     dims = {}
 
     def process_gop(tmp, gop, start, end):
-        st, n_act = _encode_gop(config, gop, fps, device)
+        st, n_act = _encode_gop(config, gop, fps, device, mesh)
         nn_calls.append(int(st.metrics.get('ft_nn_calls', 0)))
         if not dims:
             dims['w'], dims['h'] = st.screen_w, st.screen_h

@@ -5,13 +5,23 @@ The dedup runs on the device against the resident tile pixels: rows are
 packed into words, grouped by a sort (torch.unique over rows), and each
 group's winner is its lowest tile index (a scatter-min, which is order
 independent). Only the winner map comes to the host. Byte-identical to
-the JAX package's tile_words/dedupe_words.
+the JAX package's tile_words/dedupe_words. On a mesh_ok mesh (more than
+one shard, a power of two) the dedup is hash-partitioned across it
+(parallel.sharded_ops.sharded_unique), with the same canonical winners;
+else it runs on the mesh's first device.
+
+The tileset-level computation has an array-argument form
+(compute_unique_fwd) so the multi-host encode can run it identically on
+every host over the allgathered global tileset (parallel.gop_exact).
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
+from ..parallel.mesh_pipeline import mesh_ok
 from .state import EncoderState
 
 
@@ -36,15 +46,33 @@ def dedupe_words(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def compute_unique_fwd_device(state: EncoderState):
     """Returns (fwd [N] forwarding map, new_use [N], new_active [N],
     losers) for the device-resident tiles, without touching any
-    tilemap."""
+    tilemap. metrics['mu_phases'] splits the dedup into its enqueue
+    ('queue') and its wait for the winners ('sync')."""
     n = state.n_tiles
     fwd = np.arange(n)
     act = np.flatnonzero(state.tile_active)
     if act.size == 0:
         return fwd, state.tile_use.copy(), state.tile_active.copy(), act
-    idx = torch.from_numpy(act.astype(np.int64)).to(state.device)
-    winner = dedupe_words(tile_words(state.device_tiles_pal(), idx), idx)
-    fwd[act] = winner.cpu().numpy()
+    t0 = time.perf_counter()
+    if mesh_ok(state.mesh):
+        # a lazy import: sharded_ops builds on this module's dedup
+        from ..parallel.sharded_ops import sharded_unique
+        sidx, winner = sharded_unique(state.mesh, state.device_tiles_pal(),
+                                      act, n)
+        t_queue = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    else:
+        sidx = act
+        idx = torch.from_numpy(act.astype(np.int64)).to(state.device)
+        winner = dedupe_words(tile_words(state.device_tiles_pal(), idx), idx)
+        t_queue = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        winner = winner.cpu().numpy()
+    state.metrics['mu_phases'] = {
+        'queue': round(t_queue, 3),
+        'sync': round(time.perf_counter() - t0, 3),
+        'rows': int(act.size)}
+    fwd[sidx] = winner
 
     tile_use = state.tile_use
     new_use = tile_use.copy()
@@ -56,6 +84,17 @@ def compute_unique_fwd_device(state: EncoderState):
     new_active = state.tile_active.copy()
     new_active[losers] = False
     return fwd, new_use, new_active, losers
+
+
+def compute_unique_fwd(tiles_pal: np.ndarray, tile_active: np.ndarray,
+                       tile_use: np.ndarray, device='cuda', mesh=None):
+    """compute_unique_fwd_device over GLOBAL host arrays (uploaded to
+    `device`, sharded across `mesh` when it is mesh_ok): the same
+    (fwd, new_use, new_active, losers)."""
+    st = EncoderState(config=None, device=torch.device(device), mesh=mesh)
+    st.tiles_pal, st.tile_active, st.tile_use = tiles_pal, tile_active, \
+        tile_use
+    return compute_unique_fwd_device(st)
 
 
 def run_make_unique(state: EncoderState) -> EncoderState:

@@ -16,17 +16,25 @@ JSON line; any failure raises and exits non-zero):
      per SM and at C=1,048,576; each kernel's bound from these shapes;
   4. the paths, each with the launch counts set to 0 just before it and
      read just after:
-     a. the experiment tools (tiler_tpu_torch.tools.nn_prec_bench and
-        assign_opt_bench) at their full shapes: K1, K2, K3 and both
-        prepare kernels;
+     a. the experiment tools (tiler_tpu_torch.tools.nn_prec_bench,
+        assign_opt_bench and stage3_precision) at their full shapes: K1,
+        K2, K3 and both prepare kernels; stage3_precision encodes the
+        1080p slice (below) with stage 3 through K1 and through K3 and
+        prints PSNR, bytes and winner agreement of both;
      b. the configurations on the 8x120x160 clip (default, Yliluoma +
-        VAR, KModes restarts, a 64-colour tile palette, no wavelets, and
-        the reload of the tileset the Yliluoma + VAR encode wrote), each
-        encoded on the card and on the CPU, whose PSNRs must agree;
+        VAR, KModes restarts, a 64-colour tile palette, no wavelets, the
+        reload of the tileset the Yliluoma + VAR encode wrote, and every
+        EncoderConfig field of tests/test_torch_configs_fields.py) and
+        the edge-case clips of tests/test_edge_cases.py, each encoded on
+        the card and on the CPU: the same bytes, or PSNRs within 0.05 dB
+        for a case whose streams part at a recorded near tie;
      c. the slice: Encoder(device='cuda').run_all on the 1080p 16-frame
         cuts_v2 clip at 128 palettes, once untimed and once timed, with
         K1's launches in the timed run equal to the stage-3 1-NN calls
-        and the prepare's equal to the keyframes;
+        and the prepare's equal to the keyframes; the two streams and the
+        stage-3 tool's K1 stream byte-identical; then run_all with
+        profile_dir on the small clip writes a trace holding every step
+        and each K1 launch;
      d. the same clip with Yliluoma + VAR, encoded once;
      e. the other entry points on that clip (3 GOPs): encode_streaming
         and encode_gop_sharded(n_hosts=1) write the same bytes, with K1's
@@ -59,6 +67,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import signal
@@ -563,21 +572,27 @@ def check_variants(card: str) -> list:
     return [aug, bf16]
 
 
-def run_tools() -> dict:
-    """The path of K2, K3 and K3's prepare: both experiment tools at
+def run_tools(card: str) -> tuple[dict, dict]:
+    """The path of K2, K3 and K3's prepare: the three experiment tools at
     their default (full) shapes, in this process, with the launch counts
     set to 0 before and read after; the assign tool's LUTs bit-equal and
-    its K1/K2 and float64 winner agreements at least AGREE_FLOOR."""
+    its K1/K2 and float64 winner agreements at least AGREE_FLOOR; the
+    stage-3 precision tool's K1 encode through K1 alone and its K3 encode
+    through K3 alone, once per stage-3 call, its line printed as it is.
+    Returns the counts and that tool's result."""
     from tiler_tpu_torch.ops import nn_kernels as nk
-    from tiler_tpu_torch.tools import assign_opt_bench, nn_prec_bench
+    from tiler_tpu_torch.tools import (assign_opt_bench, nn_prec_bench,
+                                       stage3_precision)
     nk.LAUNCHES = nk.LAUNCHES_PREP = nk.LAUNCHES_AUG = nk.LAUNCHES_BF16 = 0
     nk.LAUNCHES_BF16_PREP = 0
     prec = nn_prec_bench.main([])
     aob = assign_opt_bench.main([])
+    s3 = stage3_precision.main([])
     counts = {'nn1': nk.LAUNCHES, 'nn1_prepare': nk.LAUNCHES_PREP,
               'nn1_aug': nk.LAUNCHES_AUG, 'nn1_bf16': nk.LAUNCHES_BF16,
               'nn1_bf16_prepare': nk.LAUNCHES_BF16_PREP}
-    say('tools', nn_prec_bench=prec, assign_opt_bench=aob, launches=counts)
+    say('tools', card=card, nn_prec_bench=prec, assign_opt_bench=aob,
+        launches=counts)
     if min(counts.values()) <= 0:
         raise AssertionError(f'a kernel of the tools path never launched: '
                              f'{counts}')
@@ -589,7 +604,13 @@ def run_tools() -> dict:
     if low:
         raise AssertionError(f'assign tool: agreement below {AGREE_FLOOR}: '
                              f'{low}')
-    return counts
+    for route, used, unused in (('k1', 'nn1', 'nn1_bf16'),
+                                ('k3', 'nn1_bf16', 'nn1')):
+        got = s3[route]['launches']
+        if got[used] != s3[route]['ft_nn_calls'] or got[unused] != 0:
+            raise AssertionError(f'stage3_precision {route}: launches {got} '
+                                 f'for {s3[route]["ft_nn_calls"]} calls')
+    return counts, s3
 
 
 def encode_counted(frames, cfg, phase: str, card: str, **extra):
@@ -622,11 +643,60 @@ def encode_counted(frames, cfg, phase: str, card: str, **extra):
     return enc, blob, {'nn1': launches, 'nn1_prepare': prepares}
 
 
+# Path b beyond the six configurations: every EncoderConfig field that
+# tests/test_torch_configs_fields.py holds against the JAX package, as
+# fields over the small clip's base config ...
+FIELD_CASES = {
+    'ft_quality_slow': dict(ft_quality=2),             # FTQuality.SLOW
+    'ft_gamma': dict(ft_gamma=True),
+    'ft_palette_tol_0.3': dict(ft_palette_tol=0.3),
+    'dithering_gamma': dict(dithering_gamma=True),
+    'dl3_bpc_6': dict(dl3_bpc=6),
+    'dl3_bin_cap_256': dict(dl3_bin_cap=256),
+    'dl3_bpc_6_bin_cap_256': dict(dl3_bpc=6, dl3_bin_cap=256),
+    'yliluoma_mix_8': dict(yliluoma_mix=8, use_thomas_knoll=False),
+    'encoder_gamma_2.2_visual_gamma_1': dict(
+        encoder_gamma=2.2, visual_gamma=1.0, dithering_gamma=True,
+        ft_gamma=True),
+    'smoothing_strength_0': dict(smoothing_strength=0.0),
+    'smoothing_strength_0.2': dict(smoothing_strength=0.2),
+    'qb_tiles_1_max_tiles_0': dict(qb_tiles=1.0, max_tiles=0),
+    'lzma_mode_lc8': dict(lzma_mode='lc8'),
+    'lzma_mode_lc3': dict(lzma_mode='lc3'),
+    'lzma_mode_best': dict(lzma_mode='best')}
+# the field cases that neither Load nor Dither reads: each device resumes
+# them from its own state after the base config's Dither, as that test
+# does, so that the dither runs once per device
+AFTER_DITHER = {'ft_quality_slow', 'ft_gamma', 'ft_palette_tol_0.3',
+                'smoothing_strength_0', 'smoothing_strength_0.2',
+                'qb_tiles_1_max_tiles_0', 'lzma_mode_lc8', 'lzma_mode_lc3',
+                'lzma_mode_best'}
+_SMALL = dict(palette_count=2, tile_palette_size=4)
+# ... and the clips of tests/test_edge_cases.py (shape, value bound, config)
+EDGE_CLIPS = {
+    'edge_single_frame': ((1, 16, 16, 3), 256, _SMALL),
+    'edge_single_tile': ((2, 8, 8, 3), 256, _SMALL),
+    'edge_crop_21x13': ((2, 13, 21, 3), 256, _SMALL),
+    'edge_grayscale': ((2, 16, 16, 1), 256, _SMALL),
+    'edge_palette_count_256': ((2, 32, 48, 3), 255, dict(
+        palette_count=256, tile_palette_size=4, max_tiles=20)),
+    'edge_tile_palette_size_64': ((2, 32, 48, 3), 255, dict(
+        palette_count=4, tile_palette_size=64, max_tiles=20))}
+# the cases whose card and CPU streams part at a FrameTiling near tie (K1
+# and its plain version sum in different orders; on an H100 these part by
+# 0.0003-0.0006 dB): PSNRs within 0.05 dB; every other case writes the
+# same bytes on both
+NEAR_TIES = {'yliluoma_var', 'ft_palette_tol_0.3', 'dl3_bpc_6',
+             'dl3_bpc_6_bin_cap_256'}
+
+
 def check_configs() -> None:
-    """Path b: each configuration on the small clip, on the card and on
-    the CPU; PSNRs within 0.05 dB (the streams may part at float near
-    ties). The reload encodes read the tileset that the card's Yliluoma
-    + VAR encode wrote."""
+    """Path b: each configuration on the small clip, and each edge-case
+    clip, encoded on the card and on the CPU: the same bytes, or for a
+    case of NEAR_TIES PSNRs within 0.05 dB; K1 launched once per stage-3
+    call and its prepare once per keyframe. The reload encodes read the
+    tileset that the card's Yliluoma + VAR encode wrote; the cases of
+    AFTER_DITHER resume from a checkpoint after Dither."""
     import tempfile
 
     from tiler_tpu_torch.bitstream.gtm import write_gts
@@ -634,10 +704,30 @@ def check_configs() -> None:
     from tiler_tpu_torch.decode import decode_video
     from tiler_tpu_torch.ops import nn_kernels as nk
     from tiler_tpu_torch.ops.stats import psnr
+    from tiler_tpu_torch.pipeline.encoder import Encoder
     from tiler_tpu_torch.tools.common import synthetic_clip_v2
+    from tiler_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
     small = synthetic_clip_v2(8, 120, 160)
     base = EncoderConfig(palette_count=16, max_tiles=400)
     with tempfile.TemporaryDirectory() as tmp:
+        dithered = {}
+        for dev in ('cuda', 'cpu'):
+            enc = Encoder(dataclasses.replace(base, end_step='dither'),
+                          device=dev)
+            enc.run_all(small, fps=24)
+            dithered[dev] = os.path.join(tmp, f'dither_{dev}')
+            save_checkpoint(dithered[dev], enc.state)
+
+        def run(name, clip, cfg, dev, fast):
+            if name not in AFTER_DITHER:
+                return encode(clip, cfg, dev, fast)[:2]
+            cfg = dataclasses.replace(cfg, start_step='make_unique')
+            enc = Encoder(cfg, device=dev)
+            enc.state = load_checkpoint(dithered[dev], dev)
+            enc.state.config = cfg
+            return enc, enc.run_all(enc.state.frames_rgb, fps=24,
+                                    fast_lzma=fast)
         gts = f'{tmp}/yliluoma_var.gts'
         cases = {
             'default': base,
@@ -647,28 +737,79 @@ def check_configs() -> None:
             'palette64': dataclasses.replace(base, tile_palette_size=64),
             'no_wavelets': dataclasses.replace(base, use_wavelets=False),
             'reload_gts': dataclasses.replace(base, reload_tileset=gts)}
-        for name, cfg in cases.items():
+        cases = {n: (small, c, True) for n, c in cases.items()}
+        for name, kw in FIELD_CASES.items():
+            cases[name] = (small, dataclasses.replace(base, **kw),
+                           not name.startswith('lzma_mode'))
+        for name, (shape, hi, kw) in EDGE_CLIPS.items():
+            clip = np.random.default_rng(42381337).integers(0, hi, shape)
+            clip = np.repeat(clip, 3 // shape[3], axis=3).astype(np.uint8)
+            cases[name] = (clip, EncoderConfig(**kw), True)
+        for name, (clip, cfg, fast) in cases.items():
+            t0 = time.perf_counter()
             nk.LAUNCHES = nk.LAUNCHES_PREP = 0
-            enc, blob_g, _ = encode(small, cfg, 'cuda')
+            enc, blob_g = run(name, clip, cfg, 'cuda', fast)
             launches, prepares = nk.LAUNCHES, nk.LAUNCHES_PREP
             if name == 'yliluoma_var':
                 n = int(enc.state.tile_active.sum())
                 write_gts(gts, enc.state.tiles_pal[:n],
                           cfg.tile_palette_size)
-            _, blob_c, _ = encode(small, cfg, 'cpu')
-            p_g = psnr(decode_video(blob_g)[0], small)
-            p_c = psnr(decode_video(blob_c)[0], small)
+            _, blob_c = run(name, clip, cfg, 'cpu', fast)
+            # the tilemap drops what lies beyond the last whole tile
+            dec_g, dec_c = decode_video(blob_g)[0], decode_video(blob_c)[0]
+            seen = clip[:, :dec_g.shape[1], :dec_g.shape[2]]
+            p_g, p_c = psnr(dec_g, seen), psnr(dec_c, seen)
             say(f'small_clip_{name}', psnr_cuda=p_g, psnr_cpu=p_c,
                 bytes_cuda=len(blob_g), bytes_cpu=len(blob_c),
                 same_stream=blob_g == blob_c, launches=launches,
-                prepare_launches=prepares)
-            if abs(p_g - p_c) > 0.05:
-                raise AssertionError(f'small clip {name}: cuda {p_g} vs '
-                                     f'cpu {p_c} dB')
+                prepare_launches=prepares,
+                seconds=time.perf_counter() - t0)
+            if blob_g != blob_c and (name not in NEAR_TIES
+                                     or abs(p_g - p_c) > 0.05):
+                raise AssertionError(f'small clip {name}: cuda {len(blob_g)} '
+                                     f'B, {p_g} dB vs cpu {len(blob_c)} B, '
+                                     f'{p_c} dB')
             if launches != enc.state.metrics['ft_nn_calls'] or \
                     prepares != enc.state.metrics['n_keyframes']:
                 raise AssertionError(f'small clip {name}: {launches} K1 and '
                                      f'{prepares} prepare launches')
+
+
+def check_profiled(card: str) -> None:
+    """Path c, Encoder.run_all(profile_dir=) on the card, on the small
+    clip: one Chrome trace appears in the directory, with the annotation
+    of every step and the card's kernels, K1 among them."""
+    import glob
+
+    from tiler_tpu_torch.config import EncoderConfig
+    from tiler_tpu_torch.constants import ENCODER_STEPS
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    from tiler_tpu_torch.tools.common import synthetic_clip_v2
+    enc = Encoder(EncoderConfig(palette_count=16, max_tiles=400),
+                  device='cuda')
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        enc.run_all(synthetic_clip_v2(8, 120, 160), fps=24, fast_lzma=True,
+                    profile_dir=tmp)
+        wall = time.perf_counter() - t0
+        files = glob.glob(os.path.join(tmp, '*.pt.trace.json'))
+        size = [os.path.getsize(f) for f in files]
+        events = []
+        if files:
+            with open(files[0]) as fh:
+                events = json.load(fh)['traceEvents']
+    steps = sorted({e['name'][5:] for e in events
+                    if e.get('cat') == 'user_annotation'
+                    and e['name'].startswith('step:')})
+    kernels = [e['name'] for e in events if e.get('cat') == 'kernel']
+    k1 = sum('nn1_kernel' in n for n in kernels)
+    say('profiled', card=card, wall_s=wall, trace_files=len(files),
+        trace_bytes=size, steps=steps, kernels=len(kernels), nn1_kernels=k1,
+        ft_nn_calls=enc.state.metrics['ft_nn_calls'])
+    if len(files) != 1 or set(steps) != set(ENCODER_STEPS) or \
+            k1 != enc.state.metrics['ft_nn_calls']:
+        raise AssertionError(f'profiled encode: {len(files)} trace files, '
+                             f'steps {steps}, {k1} K1 kernels')
 
 
 def _counts_zero() -> None:
@@ -1043,11 +1184,11 @@ def check_cli_multi(card: str, tmp: str) -> None:
                              f'{two.stderr[-500:]}')
 
 
-def encode(frames, cfg, device):
+def encode(frames, cfg, device, fast_lzma: bool = True):
     from tiler_tpu_torch.pipeline.encoder import Encoder
     enc = Encoder(cfg, device=device)
     t0 = time.perf_counter()
-    blob = enc.run_all(frames, fps=24, fast_lzma=True)
+    blob = enc.run_all(frames, fps=24, fast_lzma=fast_lzma)
     return enc, blob, time.perf_counter() - t0
 
 
@@ -1074,19 +1215,28 @@ def main() -> int:
     record = check_kernel(card)
     variants = check_variants(card) + [check_prepare_bf16(card)]
 
-    counts = run_tools()
+    counts, s3 = run_tools(card)
     for rec in variants:
         rec['launches'] = counts[rec['name']]
+    say('stage3_precision', card=card, **s3)
     check_configs()
 
     frames = synthetic_clip_v2(16, 1080, 1920)
     cfg = EncoderConfig(palette_count=128, tile_palette_size=16)
-    _, _, warm_s = encode(frames, cfg, 'cuda')
+    _, untimed, warm_s = encode(frames, cfg, 'cuda')
     torch.cuda.reset_peak_memory_stats()
     enc, blob, counts = encode_counted(frames, cfg, 'slice', card,
                                        warm_s=warm_s)
     record['launches'], prep['launches'] = counts['nn1'], counts['nn1_prepare']
     counts_batch = counts
+    sha = hashlib.sha256(blob).hexdigest()
+    say('slice_streams', gtm_bytes=len(blob), sha256=sha,
+        timed_equals_untimed=blob == untimed,
+        stage3_tool_k1_equals=sha == s3['k1']['sha256'])
+    if blob != untimed or sha != s3['k1']['sha256']:
+        raise AssertionError('the untimed, the timed and the stage-3 '
+                             "tool's K1 slice streams differ")
+    del untimed
     decoded, stream = decode_video(blob)
     batch = {'wall_s': sum(enc.state.step_times.values()),
              'gtm_bytes': len(blob), 'tiles': len(stream.tiles),
@@ -1100,6 +1250,7 @@ def main() -> int:
         raise AssertionError(f'PSNR {p} dB < {PSNR_FLOOR}')
     batch['psnr'] = p
     del decoded
+    check_profiled(card)
 
     with tempfile.TemporaryDirectory() as tmp:
         check_renderers(blob, enc, frames, card)

@@ -79,6 +79,23 @@ def test_cli_refuses_missing_cuda(tmp_path):
     assert not (tmp_path / 'o.gtm').exists()
 
 
+def test_bare_encoder_state_runs_on_the_card():
+    """An EncoderState built without a device is on 'cuda', as Encoder:
+    without a card it raises instead of running on the CPU; a step
+    function given such a state never falls back on its own."""
+    import torch
+
+    from tiler_tpu_torch.config import EncoderConfig as Config
+    from tiler_tpu_torch.pipeline.state import EncoderState
+    if torch.cuda.is_available():
+        assert EncoderState(config=Config()).device.type == 'cuda'
+    else:
+        with pytest.raises(RuntimeError, match='cuda'):
+            EncoderState(config=Config())
+    st = EncoderState(config=Config(), device='cpu')
+    assert st.device == torch.device('cpu') and st.mesh.flat == [st.device]
+
+
 @pytest.mark.parametrize('clip', ['noise', 'constant'])
 def test_port_runs_without_jax(clip):
     """The port encodes with jax, the JAX package and its benchmark

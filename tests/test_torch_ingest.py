@@ -1,6 +1,9 @@
 """Ingestion in the port (ffmpeg argv, the fps scrape, the faked ffmpeg
-flows, PNG sequences): equal to the JAX package's on the same inputs. No
-ffmpeg binary is needed."""
+flows, PNG sequences, and EncoderConfig's ingestion fields start_frame,
+frame_count, scaling and fps): equal to the JAX package's on the same
+inputs. No ffmpeg binary is needed."""
+import jax_native_lock  # noqa: F401  (first: builds tiler_tpu's library)
+
 import os
 import shutil
 
@@ -162,3 +165,40 @@ def test_png_order_is_numeric_past_9999(tmp_path, rng):
     assert [int(f[0, 0, 0]) for f in frames] == [n % 251 for n in nums]
     with pytest.raises(FileNotFoundError):
         L.sorted_frame_paths(str(tmp_path / 'none*.png'))
+
+
+@pytest.mark.parametrize('start,count,scale', [(0, 0, 1.0), (1, 3, 0.5),
+                                               (2, 0, 2.0)])
+def test_ingestion_fields_select_the_jax_frames(monkeypatch, tmp_path, rng,
+                                                start, count, scale):
+    """start_frame, frame_count and scaling, as the CLI hands them from
+    the config to both readers: the same frames and fps as the JAX
+    package's readers, from one faked ffmpeg."""
+    src = rng.integers(0, 255, (5, 24, 40, 3)).astype(np.uint8)
+    _fake_ffmpeg(tmp_path, monkeypatch, src)
+    got, fps = L.frames_from_video('x.mp4', start, count, scale)
+    want, jfps = J.frames_from_video('x.mp4', start, count, scale)
+    assert fps == jfps == 25.0
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, src[start:][:count or None])
+    it, fps, hw = L.open_video_stream('x.mp4', start, count, scale)
+    jit, jfps, jhw = J.open_video_stream('x.mp4', start, count, scale)
+    assert (fps, hw) == (jfps, jhw)
+    np.testing.assert_array_equal(np.stack(list(it)), np.stack(list(jit)))
+
+
+def test_fps_reaches_the_stream_as_in_jax(rng):
+    """The fps handed to run_all (the CLI's --fps, EncoderConfig.fps)
+    lands in the stream as the JAX package writes it."""
+    from tiler_tpu.config import EncoderConfig as JaxConfig
+    from tiler_tpu.pipeline.encoder import Encoder as JaxEncoder
+    from tiler_tpu_torch.config import EncoderConfig
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    frames = rng.integers(0, 256, (2, 16, 16, 3)).astype(np.uint8)
+    kw = dict(palette_count=2, tile_palette_size=4)
+    want = JaxEncoder(JaxConfig(**kw)).run_all(frames, fps=30.0,
+                                               fast_lzma=True)
+    enc = Encoder(EncoderConfig(**kw), device='cpu')
+    assert enc.run_all(frames, fps=30.0, fast_lzma=True) == want
+    assert Encoder(EncoderConfig(**kw), device='cpu').run_all(
+        frames, fps=24.0, fast_lzma=True) != want

@@ -71,7 +71,8 @@ def test_new_modules_are_walked_and_import_no_jax():
     PIL is not loaded by importing them (it is reached inside the
     functions that read or write PNGs)."""
     mods = ['player', 'render', 'utils.checkpoint', 'parallel.distributed',
-            'pipeline.stream', 'pipeline.load', 'decode', '__main__']
+            'pipeline.stream', 'pipeline.load', 'decode', '__main__',
+            'tools.stage3_precision', 'tools.profile_encode']
     code = _BLOCK + (
         "import importlib\n"
         f"for n in {mods!r}:\n"
@@ -109,6 +110,31 @@ def test_parallel_modules_run_with_jax_package_blocked():
         "    clip, fast_lzma=True) == want\n"
         "assert encode_gop_sharded_exact(clip, cfg, 2, fps=24.0, "
         "fast_lzma=True, device='cpu') == want\n"
+        + _NONE_LOADED +
+        "print('ok')\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == 'ok'
+
+
+def test_stage3_tool_and_profiled_run_with_jax_package_blocked(tmp_path):
+    """The stage-3 precision tool runs both of its encodes, and
+    run_all(profile_dir=) writes its trace, with tiler_tpu, bench, jax and
+    __graft_entry__ unimportable."""
+    prof = str(tmp_path / 'prof')
+    code = _BLOCK + (
+        "import os\n"
+        "from tiler_tpu_torch.config import EncoderConfig\n"
+        "from tiler_tpu_torch.pipeline.encoder import Encoder\n"
+        "from tiler_tpu_torch.tools import stage3_precision\n"
+        "from tiler_tpu_torch.tools.common import synthetic_clip_v2\n"
+        "res = stage3_precision.main(['--frames', '3', '--height', '32', "
+        "'--width', '48', '--palettes', '4', '--device', 'cpu'])\n"
+        "assert res['stage3_queries'] > 0\n"
+        "Encoder(EncoderConfig(palette_count=2, tile_palette_size=4), "
+        "device='cpu').run_all(synthetic_clip_v2(2, 16, 16), "
+        f"profile_dir={prof!r})\n"
+        f"assert len(os.listdir({prof!r})) == 1\n"
         + _NONE_LOADED +
         "print('ok')\n")
     out = _run(code)

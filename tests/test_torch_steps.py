@@ -126,7 +126,7 @@ STEPS = ['load', 'dither', 'make_unique', 'global_tiling',
 @pytest.mark.parametrize('step', STEPS)
 def test_step_parity(ref, step, monkeypatch):
     if step == 'load':
-        port = EncoderState(config=CFG)
+        port = EncoderState(config=CFG, device='cpu')
         load.run_load(port, ref['frames'], 24)
         want = _after(ref, 'load')
         _same(port, want, ['keyframes', 'tiles_rgb', 'tiles_pal', 'tm_tile',

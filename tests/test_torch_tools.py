@@ -2,6 +2,9 @@
 where they run the kernels' plain versions, and the encoder flags of the
 port's CLI."""
 import dataclasses
+import glob
+import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -12,8 +15,13 @@ import pytest
 
 from bench import synthetic_clip_v2
 from tiler_tpu.bitstream.gtm import read_gts
+from tiler_tpu_torch.config import EncoderConfig
+from tiler_tpu_torch.constants import ENCODER_STEPS
 from tiler_tpu_torch.ops import nn_kernels as nk
-from tiler_tpu_torch.tools import assign_opt_bench, nn_prec_bench
+from tiler_tpu_torch.pipeline import frame_tiling
+from tiler_tpu_torch.pipeline.encoder import Encoder
+from tiler_tpu_torch.tools import (assign_opt_bench, nn_prec_bench,
+                                   profile_encode, stage3_precision)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,11 +60,64 @@ def test_assign_opt_bench_on_cpu(capsys, monkeypatch):
     assert 'nn1_ms' not in res and res['lut_n'] == 512
 
 
+def test_stage3_precision_on_cpu():
+    """Both encodes of the stage-3 tool at a tiny size: the K1 route is
+    the encoder's own stream, the K3 route parts from it, the winners of
+    every stage-3 query are compared, and stage 3 is the encoder's again
+    after the tool."""
+    res = stage3_precision.main(['--frames', '4', '--height', '48',
+                                 '--width', '64', '--palettes', '8',
+                                 '--device', 'cpu'])
+    want = Encoder(EncoderConfig(palette_count=8), device='cpu').run_all(
+        synthetic_clip_v2(4, 48, 64), fps=24, fast_lzma=True)
+    assert res['k1']['sha256'] == hashlib.sha256(want).hexdigest()
+    assert res['k1']['gtm_bytes'] == len(want)
+    assert res['k3']['sha256'] != res['k1']['sha256']
+    assert res['k1']['ft_nn_calls'] == res['k3']['ft_nn_calls'] > 0
+    assert res['stage3_queries'] > 0 and 0 < res['winner_agreement'] < 1
+    assert res['psnr_drop_db'] == res['k1']['psnr'] - res['k3']['psnr']
+    assert res['tiler_tpu_psnr_of_record'] == 29.282
+    for run in ('k1', 'k3'):          # the plain versions: no launch
+        assert set(res[run]['launches'].values()) == {0}
+    assert frame_tiling.nn_kernels is nk
+
+
+def test_run_all_profile_dir_writes_a_trace(tmp_path):
+    """run_all takes the JAX package's arguments in its order; with
+    profile_dir the run is traced and one Chrome trace holding every
+    step's annotation appears there; the stream is the untraced one."""
+    from tiler_tpu.pipeline.encoder import Encoder as JaxEncoder
+    assert list(inspect.signature(Encoder.run_all).parameters) == \
+        list(inspect.signature(JaxEncoder.run_all).parameters)
+    frames = synthetic_clip_v2(2, 16, 24)
+    cfg = EncoderConfig(palette_count=2, tile_palette_size=4)
+    want = Encoder(cfg, device='cpu').run_all(frames, fast_lzma=True)
+    prof = str(tmp_path / 'prof')
+    assert Encoder(cfg, device='cpu').run_all(frames, None, True, prof) == want
+    trace, = glob.glob(os.path.join(prof, '*.pt.trace.json'))
+    with open(trace) as fh:
+        names = {e['name'] for e in json.load(fh)['traceEvents']
+                 if e.get('cat') == 'user_annotation'}
+    assert {f'step:{s}' for s in ENCODER_STEPS} <= names
+
+
+def test_profile_encode_on_cpu():
+    """The profiling tool reads run_all's trace: every step with its
+    wall time; on the CPU the card is busy for none of it."""
+    res = profile_encode.main(['--frames', '2', '--height', '16',
+                               '--width', '24', '--palettes', '2',
+                               '--device', 'cpu'])
+    assert set(res['steps']) == set(ENCODER_STEPS)
+    assert all(s['wall_s'] > 0 for s in res['steps'].values())
+    assert res['busy_s'] == 0 and res['top_kernels'] == []
+
+
 def test_tools_refuse_missing_cuda():
     import torch
     if torch.cuda.is_available():
         pytest.skip('this host has a CUDA device')
-    for tool in (nn_prec_bench, assign_opt_bench):
+    for tool in (nn_prec_bench, assign_opt_bench, stage3_precision,
+                 profile_encode):
         with pytest.raises(RuntimeError, match='cuda'):
             tool.main([])
 

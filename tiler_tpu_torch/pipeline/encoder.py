@@ -22,17 +22,7 @@ from ..constants import ENCODER_STEPS, equal_quality_tile_count
 from ..parallel.mesh import check_device
 from ..utils.progress import StepProgress
 
-from .state import EncoderState
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device from a name; a CUDA device must exist (the port never
-    falls back to the CPU on its own)."""
-    dev = torch.device(device)
-    if dev.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('device cuda requested but torch finds no CUDA '
-                           'device')
-    return dev
+from .state import EncoderState, resolve_device
 
 
 class Encoder:
@@ -99,10 +89,30 @@ class Encoder:
         return min(round(cfg.qb_tiles * equal_quality_tile_count(raw)), raw)
 
     def run_all(self, frames: np.ndarray, fps: float | None = None,
-                fast_lzma: bool = False, step_hook=None) -> bytes:
+                fast_lzma: bool = False, profile_dir: str | None = None,
+                step_hook=None) -> bytes:
         """Full pipeline Load..Save honouring start/end step config.
+
+        profile_dir: when set, the run is traced by torch.profiler (host
+        activity, and on a CUDA device the card's kernels and copies),
+        each step under a 'step:<name>' annotation, and the trace is
+        written into that directory as a Chrome trace
+        (<host>_<pid>.<ms>.pt.trace.json; Perfetto, chrome://tracing and
+        TensorBoard read it).
         step_hook: optional callable(step_name) invoked after each
         completed step."""
+        if not profile_dir:
+            return self._run_all_inner(frames, fps, fast_lzma, step_hook)
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == 'cuda':
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(profile_dir)):
+            return self._run_all_inner(frames, fps, fast_lzma, step_hook)
+
+    def _run_all_inner(self, frames, fps, fast_lzma, step_hook) -> bytes:
         first = ENCODER_STEPS.index(self.config.start_step)
         last = ENCODER_STEPS.index(self.config.end_step)
         blob = b''
@@ -158,9 +168,10 @@ class Encoder:
 
     def _timed(self, name, fn, *args):
         t0 = time.perf_counter()
-        result = fn(*args)
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
+        with torch.profiler.record_function(f'step:{name}'):
+            result = fn(*args)
+            if self.device.type == 'cuda':
+                torch.cuda.synchronize(self.device)
         self.state.step_times[name] = time.perf_counter() - t0
         self._report(name)
         return result

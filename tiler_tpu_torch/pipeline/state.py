@@ -34,11 +34,22 @@ ARRAY_FIELDS = [
 _SCALAR_FIELDS = ['fps', 'tilemap_w', 'tilemap_h']
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device from a name; a CUDA device must exist (the port never
+    falls back to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('device cuda requested but torch finds no CUDA '
+                           'device')
+    return dev
+
+
 @dataclasses.dataclass
 class EncoderState:
     config: EncoderConfig
-    device: torch.device = dataclasses.field(
-        default_factory=lambda: torch.device('cpu'))
+    # the card unless the caller names another device (RuntimeError
+    # without one), as Encoder
+    device: torch.device = 'cuda'
     fps: float = 24.0
     tilemap_w: int = 0
     tilemap_h: int = 0
@@ -79,6 +90,7 @@ class EncoderState:
     _src_tiles: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
         if self.mesh is None:
             self.mesh = make_mesh(devices=[self.device])
 

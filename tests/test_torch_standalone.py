@@ -30,6 +30,7 @@ import tiler_tpu_torch.native as pnative
 from tiler_tpu_torch.bitstream import gtm as pgtm
 from tiler_tpu_torch.pipeline.reindex import compute_reindex
 from tiler_tpu_torch.pipeline.state import ARRAY_FIELDS
+from tiler_tpu_torch.tools import common
 from tiler_tpu_torch.tools.common import synthetic_clip_v2
 from tiler_tpu_torch.utils import progress as pprogress
 
@@ -72,7 +73,8 @@ def test_new_modules_are_walked_and_import_no_jax():
     functions that read or write PNGs)."""
     mods = ['player', 'render', 'utils.checkpoint', 'parallel.distributed',
             'pipeline.stream', 'pipeline.load', 'decode', '__main__',
-            'tools.stage3_precision', 'tools.profile_encode']
+            'tools.stage3_precision', 'tools.profile_encode', 'bench',
+            'tools.decode_bench', 'tools.bench720', 'tools.bench1080']
     code = _BLOCK + (
         "import importlib\n"
         f"for n in {mods!r}:\n"
@@ -82,6 +84,21 @@ def test_new_modules_are_walked_and_import_no_jax():
         "print('ok')\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
+
+
+def test_bench_cpu_mode_runs_with_jax_package_blocked():
+    """python -m tiler_tpu_torch.bench with TILER_BENCH_CPU=1 (the CPU
+    baseline at the 320x240 size) prints its cpu_fps line with tiler_tpu,
+    bench, jax and __graft_entry__ unimportable."""
+    code = _BLOCK + (
+        "import os, runpy\n"
+        "os.environ.update(TILER_BENCH_CPU='1', TILER_BENCH_SMALL='1')\n"
+        "runpy.run_module('tiler_tpu_torch.bench', run_name='__main__',\n"
+        "                 alter_sys=True)\n"
+        + _NONE_LOADED)
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1])['cpu_fps'] > 0
 
 
 def test_parallel_modules_run_with_jax_package_blocked():
@@ -449,12 +466,20 @@ def test_array_fields_are_the_checkpoint_fields():
     assert ARRAY_FIELDS == list(_ARRAY_FIELDS)
 
 
-@pytest.mark.parametrize('shape', [(8, 120, 160, 0), (4, 64, 96, 5),
-                                   (16, 48, 40, 1)])
-def test_synthetic_clip_v2_is_the_benchmark_clip(shape):
+_SHAPES = [(8, 120, 160, 0), (4, 64, 96, 5), (16, 48, 40, 1)]
+
+
+@pytest.mark.parametrize(
+    'shape,clip', [(s, 'synthetic_clip_v2') for s in _SHAPES]
+    + [(s, 'synthetic_clip') for s in _SHAPES],
+    ids=[f'shape{i}' for i in range(3)]
+    + [f'noise-shape{i}' for i in range(3)])
+def test_synthetic_clip_v2_is_the_benchmark_clip(shape, clip):
+    """Both clips of the benchmark script (cuts_v2 and the noise clip of
+    the continuity entry) frame for frame."""
     f, h, w, seed = shape
-    assert synthetic_clip_v2(f, h, w, seed).tobytes() == \
-        bench.synthetic_clip_v2(f, h, w, seed).tobytes()
+    assert getattr(common, clip)(f, h, w, seed).tobytes() == \
+        getattr(bench, clip)(f, h, w, seed).tobytes()
 
 
 def test_step_progress_is_the_original():

@@ -13,6 +13,7 @@ import os
 import subprocess
 import sys
 
+from ..bench import card_line
 from ..ops import nn_kernels as nk
 
 
@@ -22,11 +23,7 @@ def main() -> int:
     os.makedirs(nk.BUILD_DIR, exist_ok=True)
     subprocess.run([nk._nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
                     '-std=c++17', '-O3', '-o', exe, src], check=True)
-    card = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True, timeout=60)
-    print(card.stdout.strip().splitlines()[0], flush=True)
+    print(card_line('cuda'), flush=True)
     return subprocess.run([exe], timeout=600).returncode
 
 

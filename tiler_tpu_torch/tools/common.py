@@ -1,6 +1,6 @@
 """What the experiment tools and the smoke run share: the device (a card
 unless asked for the CPU), a timer, PsyV features of random tiles and
-the synthetic cuts_v2 clip."""
+the two synthetic clips of the benchmark (the noise clip and cuts_v2)."""
 from __future__ import annotations
 
 import time
@@ -48,6 +48,21 @@ def psyv_of_tiles(tiles_u8: np.ndarray, dev: torch.device) -> torch.Tensor:
         out[lo:lo + (1 << 16)] = features.psyv_features_rgb(
             t, gamma_value=None, use_lab=False, use_wavelets=True)
     return out
+
+
+def synthetic_clip(f, h, w, seed=0):
+    """The single-scene noise clip [f,h,w,3] uint8: full-frame motion and
+    noise, every cell changed in every frame, one keyframe. Frame for
+    frame the JAX package's benchmark clip of its rounds 1-4, kept there
+    and here as the continuity entry."""
+    rng = np.random.default_rng(seed)
+    frames = np.zeros((f, h, w, 3), np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(f):
+        base = ((xx * 2 + i * 3) % 256)[..., None] * np.array([1, .8, .5])
+        base += ((yy + 2 * i) % 64)[..., None] * np.array([.2, .5, 1.])
+        frames[i] = np.clip(base + rng.normal(0, 6, (h, w, 3)), 0, 255)
+    return frames
 
 
 def synthetic_clip_v2(f, h, w, seed=0):

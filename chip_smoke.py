@@ -64,6 +64,15 @@ JSON line; any failure raises and exits non-zero):
         stream over the runs, K1 launched once per stage-3 call), and
         tiler_tpu_torch.tools.decode_bench on decoders/web/sample.gtm and
         on the 1080p slice stream on the card;
+     h. the compile-check entry points (tiler_tpu_torch.graft_entry), under a
+        time limit of their own: entry('cuda')'s forward step (PsyV
+        features of 256 tiles, a 1-NN over 512 candidates) launches K1
+        and its prepare once each and agrees with the plain 1-NN on the
+        card and with the step on the CPU; dryrun_multichip(8) on 8
+        logical shards of cuda:0 writes the 1-device card stream, K1
+        launched once per stage-3 call of each encode (the mesh's split
+        over its 8 shards) and the prepare once per keyframe; its stream
+        beside the CPU port's;
   5. decode: both 1080p streams through the package's numpy decoder,
      each with PSNR >= 29 dB.
 Then the script's total wall. The last three lines are the kernels'
@@ -1242,6 +1251,113 @@ def check_bench(card: str, slice_blob: bytes, tmp: str) -> dict:
     return full
 
 
+def check_graft_entry(card: str) -> dict:
+    """Phase h, the compile-check entry points (tiler_tpu_torch.graft_entry):
+    entry('cuda')'s ft_forward launches K1 once and its prepare once, and
+    agrees with the plain 1-NN on the same card features and with the
+    whole step on the CPU from the same numpy arrays (err within rtol
+    1e-5 / atol 1e-4, winners apart only at near ties); then
+    dryrun_multichip(8) on 8 logical shards of cuda:0 writes the 1-device
+    card stream, each of its two encodes launching K1 once per stage-3
+    call (the mesh's split over its 8 shards) and the prepare once per
+    keyframe; the card stream beside the CPU port's (the same bytes, or
+    PSNRs within 0.05 dB where they part at a near tie). Returns the
+    launch counts of both."""
+    import io
+
+    import torch
+
+    from tiler_tpu_torch import graft_entry
+    from tiler_tpu_torch.decode import decode_video
+    from tiler_tpu_torch.ops import features
+    from tiler_tpu_torch.ops import nn_kernels as nk
+    from tiler_tpu_torch.ops.stats import psnr
+    rtol, atol = 1e-5, 1e-4
+    fn, args = graft_entry.entry('cuda')
+    _counts_zero()
+    idx, err = fn(*args)
+    torch.cuda.synchronize()
+    entry_counts = _counts()
+    if entry_counts != {'nn1': 1, 'nn1_prepare': 1}:
+        raise AssertionError(f'entry: launches {entry_counts}')
+    q = features.psyv_features_rgb(args[0], use_wavelets=True)
+    pidx, perr = nk.nearest_1_plain(q, args[1])
+    torch.testing.assert_close(err, perr, rtol=rtol, atol=atol)
+    ties_plain = _near_ties_only(q, args[1], idx, pidx, _l2_64)
+    cfn, cargs = graft_entry.entry('cpu')
+    cidx, cerr = cfn(*cargs)
+    torch.testing.assert_close(err.cpu(), cerr, rtol=rtol, atol=atol)
+    ties_cpu = _near_ties_only(q, args[1], idx, cidx.to(idx.device), _l2_64)
+    ms = time_ms(lambda: fn(*args))
+    prep = nk.prepare(args[1])
+    t = turns({'plain': lambda: nk.nearest_1_plain(q, args[1]),
+               'kernel': lambda: nk.nearest_1(q, prep)}, calls=4)
+    say('graft_entry', card=card, queries=len(idx), candidates=len(args[1]),
+        launches=entry_counts, ft_forward_ms=ms, k1_ms=t['kernel'],
+        plain_ms=t['plain'], **bound(len(idx), len(args[1]), q.shape[1],
+                                     PEAK_F32), rtol=rtol, atol=atol,
+        idx_differ_plain=ties_plain, idx_differ_cpu=ties_cpu,
+        max_abs_err_plain=float((err - perr).abs().max()),
+        max_abs_err_cpu=float((err.cpu() - cerr).abs().max()))
+
+    # each encode of the dryrun with its stream, metrics and launches
+    runs = []
+    plain_encoder = graft_entry.Encoder
+
+    class Counted(plain_encoder):
+        def run_all(self, *a, **kw):
+            before = _counts()
+            blob = super().run_all(*a, **kw)
+            runs.append((blob, self.state, {k: v - before[k]
+                                            for k, v in _counts().items()}))
+            return blob
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # by the phases before this one
+    _counts_zero()
+    said = io.StringIO()
+    graft_entry.Encoder = Counted
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(said):
+            blob = graft_entry.dryrun_multichip(8)
+    finally:
+        graft_entry.Encoder = plain_encoder
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    # the mesh encode runs first, then the 1-device one
+    (mesh_blob, mst, mesh_counts), (one_blob, ost, one_counts) = runs
+    shards = mst.metrics['ft_nn_calls_shards']
+    for st, got in ((mst, mesh_counts), (ost, one_counts)):
+        if got['nn1'] <= 0 or got['nn1'] != st.metrics['ft_nn_calls'] or \
+                got['nn1_prepare'] != st.metrics['n_keyframes']:
+            raise AssertionError(f'dryrun: launches {got} for '
+                                 f'{st.metrics["ft_nn_calls"]} calls, '
+                                 f'{st.metrics["n_keyframes"]} keyframes')
+    if not (blob == mesh_blob == one_blob) or len(shards) != 8 or \
+            sum(shards) != mst.metrics['ft_nn_calls']:
+        raise AssertionError(f'dryrun: streams differ or shards {shards}')
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_blob = graft_entry.dryrun_multichip(1, devices=['cpu'])
+    frames = graft_entry._dryrun_clip()
+    p_card = psnr(decode_video(blob)[0], frames)
+    p_cpu = psnr(decode_video(cpu_blob)[0], frames)
+    ok_line = [ln for ln in said.getvalue().splitlines()
+               if ln.startswith('dryrun_multichip OK')]
+    say('dryrun8', card=card, said=ok_line, wall_s=wall,
+        gtm_bytes=len(blob), sha256=hashlib.sha256(blob).hexdigest(),
+        launches=mesh_counts, launches_per_shard=shards,
+        launches_one_device=one_counts, max_memory_allocated=peak,
+        memory_allocated_before=held,
+        cpu_gtm_bytes=len(cpu_blob),
+        cpu_sha256=hashlib.sha256(cpu_blob).hexdigest(),
+        same_as_cpu=blob == cpu_blob, psnr=p_card, cpu_psnr=p_cpu)
+    if blob != cpu_blob and not abs(p_card - p_cpu) <= 0.05:
+        raise AssertionError(f'dryrun: card {p_card} dB, CPU {p_cpu} dB')
+    return {'entry': entry_counts,
+            'dryrun8': dict(mesh_counts, per_shard=shards)}
+
+
 def encode(frames, cfg, device, fast_lzma: bool = True):
     from tiler_tpu_torch.pipeline.encoder import Encoder
     enc = Encoder(cfg, device=device)
@@ -1332,6 +1448,14 @@ def main() -> int:
             full = check_bench(card, blob, tmp)
         record['launches_bench_small'] = full['k1_launches'][0]
         prep['launches_bench_small'] = full['k1_prepare_launches'][0]
+
+    with time_limit(600, 'compile-check entry points'):
+        got = check_graft_entry(card)
+    record['launches_graft_entry'] = got['entry']['nn1']
+    prep['launches_graft_entry'] = got['entry']['nn1_prepare']
+    record['launches_dryrun8'] = got['dryrun8']['nn1']
+    record['launches_dryrun8_per_shard'] = got['dryrun8']['per_shard']
+    prep['launches_dryrun8'] = got['dryrun8']['nn1_prepare']
 
     cfg_yv = dataclasses.replace(cfg, use_thomas_knoll=False, use_dl3=False)
     _, blob, _ = encode_counted(frames, cfg_yv, 'slice_yliluoma_var', card)

@@ -28,7 +28,10 @@ from tiler_tpu_torch.decode import decode_video
 from tiler_tpu_torch.ops import features
 from tiler_tpu_torch.ops.stats import psnr
 from tiler_tpu_torch.pipeline.encoder import Encoder
+from tiler_tpu_torch.pipeline.frame_tiling import run_frame_tiling
 from tiler_tpu_torch.pipeline.load import changed_mask, split_into_tiles
+from tiler_tpu_torch.pipeline.state import from_reference_state
+from tiler_tpu_torch.tools.common import sample_clip
 from tiler_tpu_torch.utils import checkpoint as pckpt
 
 torch.set_num_threads(1)
@@ -135,9 +138,10 @@ def _first_difference(got: dict, want: dict):
     return None
 
 
-def _ft_gaps(got: dict, want: dict, frames, cfg) -> np.ndarray:
-    """FrameTiling: the cells that differ ran at most 0.1% of the 1-NN
-    queries (an unchanged cell copies its query's result forward); the
+def _ft_gaps(got: dict, want: dict, frames, cfg,
+             max_share: float = 0.001) -> np.ndarray:
+    """FrameTiling: the cells that differ ran at most max_share of the
+    1-NN queries (an unchanged cell copies its query's result forward); the
     gap between each differing cell's two winners' distances to its
     source tile's features (the port's f32 features, float64 sums),
     relative to the larger |q|^2 + |c|^2."""
@@ -146,7 +150,7 @@ def _ft_gaps(got: dict, want: dict, frames, cfg) -> np.ndarray:
                           .any(0).ravel())
     queried = changed_mask(frames, th, tw)
     queried[want['keyframes'][:, 0]] = True
-    assert queried.ravel()[diff].sum() <= 0.001 * f_n * th * tw
+    assert queried.ravel()[diff].sum() <= max_share * f_n * th * tw
     gamma = cfg.encoder_gamma if cfg.ft_gamma else None
     src = torch.from_numpy(split_into_tiles(frames, th, tw)[diff])
     q = features.psyv_features_rgb(src, gamma_value=gamma,
@@ -247,6 +251,53 @@ def test_field_matches_jax(ref, case):
         n_port = int(snaps[step]['stm_smooth'].sum())
         n_jax = int(jsnaps[step]['stm_smooth'].sum())
         assert n_jax < n_port, (n_jax, n_port)
+    p_port = psnr(decode_video(got)[0], frames)
+    p_jax = psnr(decode_video(want)[0], frames)
+    assert abs(p_port - p_jax) <= 0.01, (p_port, p_jax)
+
+
+# the config of tools/gen_sample_stream.py, which encodes the plasma clip
+PLASMA = EncoderConfig(palette_count=32, tile_palette_size=16, qb_tiles=1.0)
+
+
+def plasma_encodes(frames) -> dict:
+    """Both packages' fast-LZMA encodes of frames at PLASMA with each
+    step's FIELDS ('jax'/'port': encoder, stream, snaps), and the port's
+    FrameTiling resumed from tiler_tpu's state after GlobalTiling
+    ('resumed')."""
+    jenc, jsnaps, after_gt = JaxEncoder(PLASMA), {}, []
+
+    def hook(step):
+        jsnaps[step] = _snap(jenc.state)
+        if step == 'global_tiling':
+            after_gt.append(from_reference_state(jenc.state, 'cpu'))
+    want = jenc.run_all(frames, fps=24, fast_lzma=True, step_hook=hook)
+    enc = Encoder(PLASMA, device='cpu')
+    got, snaps = _encode(enc, frames, 24, True)
+    return {'jax': (jenc, want, jsnaps), 'port': (enc, got, snaps),
+            'resumed': run_frame_tiling(after_gt[0])}
+
+
+def test_plasma_clip_parts_only_at_frame_tiling_near_ties():
+    """The plasma clip of the web player's sample stream at the sample
+    tool's config, cut to 12 frames of 160x88: the first step whose
+    output differs is FrameTiling, the port's FrameTiling resumed from
+    tiler_tpu's state after GlobalTiling gives the port's own cells, and
+    each cell that differs is a near tie of the two f32 1-NNs (ROADMAP
+    Queue 3; tests/plasma_ft_ties.py reads the full clip)."""
+    frames = sample_clip(160, 88, 12)
+    run = plasma_encodes(frames)
+    (_, want, jsnaps), (_, got, snaps) = run['jax'], run['port']
+    assert _first_difference(snaps, jsnaps) == 'frame_tiling'
+    for f in _FT:
+        np.testing.assert_array_equal(getattr(run['resumed'], f),
+                                      snaps['frame_tiling'][f], f)
+    # the plasma's smooth gradients give more near-equidistant candidates
+    # than cuts_v2: 8 of these 2,640 cells' queries part (50 of 42,240 at
+    # the full 48 x 176 x 320), against the 0.1% bound set on cuts_v2
+    gaps = _ft_gaps(snaps['frame_tiling'], jsnaps['frame_tiling'], frames,
+                    PLASMA, max_share=0.005)
+    assert 0 < gaps.size and gaps.max() <= RTOL_FT, gaps
     p_port = psnr(decode_video(got)[0], frames)
     p_jax = psnr(decode_video(want)[0], frames)
     assert abs(p_port - p_jax) <= 0.01, (p_port, p_jax)

@@ -60,11 +60,12 @@ def test_every_module_imports_with_jax_package_blocked():
         "for n in names:\n"
         "    if not n.endswith('__main__'): importlib.import_module(n)\n"
         + _NONE_LOADED +
-        "print(len(names))\n")
-    out = _run(code)
+        "print(json.dumps(names))\n")
+    out = _run("import json\n" + code)
     assert out.returncode == 0, out.stderr
-    names = out.stdout.strip().splitlines()[-1]
-    assert int(names) >= 36
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(names) >= 36
+    assert 'tiler_tpu_torch.graft_entry' in names
 
 
 def test_new_modules_are_walked_and_import_no_jax():
@@ -74,7 +75,8 @@ def test_new_modules_are_walked_and_import_no_jax():
     mods = ['player', 'render', 'utils.checkpoint', 'parallel.distributed',
             'pipeline.stream', 'pipeline.load', 'decode', '__main__',
             'tools.stage3_precision', 'tools.profile_encode', 'bench',
-            'tools.decode_bench', 'tools.bench720', 'tools.bench1080']
+            'tools.decode_bench', 'tools.bench720', 'tools.bench1080',
+            'graft_entry']
     code = _BLOCK + (
         "import importlib\n"
         f"for n in {mods!r}:\n"
@@ -132,6 +134,27 @@ def test_parallel_modules_run_with_jax_package_blocked():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == 'ok'
+
+
+def test_graft_entry_runs_with_jax_package_blocked():
+    """The port's compile-check entry points on the CPU: entry's forward step
+    and a 2-shard dryrun_multichip, which prints its OK line and returns
+    the 1-device stream, with tiler_tpu, bench, jax and __graft_entry__
+    unimportable."""
+    code = _BLOCK + (
+        "from tiler_tpu_torch.graft_entry import dryrun_multichip, entry\n"
+        "fn, args = entry('cpu')\n"
+        "idx, err = fn(*args)\n"
+        "assert idx.shape == err.shape == (256,)\n"
+        "blob = dryrun_multichip(2, devices=['cpu'] * 2)\n"
+        + _NONE_LOADED +
+        "print(len(blob))\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-2].startswith("dryrun_multichip OK: mesh={'gop': 1, "
+                                "'frame': 2}, ")
+    assert f'gtm_bytes={lines[-1]}, ' in lines[-2]
 
 
 def test_stage3_tool_and_profiled_run_with_jax_package_blocked(tmp_path):
@@ -480,6 +503,39 @@ def test_synthetic_clip_v2_is_the_benchmark_clip(shape, clip):
     f, h, w, seed = shape
     assert getattr(common, clip)(f, h, w, seed).tobytes() == \
         getattr(bench, clip)(f, h, w, seed).tobytes()
+
+
+def test_dryrun_clip_is_the_original():
+    import __graft_entry__
+    from tiler_tpu_torch import graft_entry
+    assert inspect.getsource(graft_entry._dryrun_clip) == \
+        inspect.getsource(__graft_entry__._dryrun_clip)
+    assert graft_entry._dryrun_clip().tobytes() == \
+        __graft_entry__._dryrun_clip().tobytes()
+
+
+def _gen_sample_stream():
+    """tools/gen_sample_stream.py, which is no package module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'gen_sample_stream', os.path.join(REPO, 'tools',
+                                          'gen_sample_stream.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize('shape', [None, (160, 88, 12)],
+                         ids=['default', 'small'])
+def test_sample_clip_is_the_original(shape):
+    """The plasma clip of the web player's sample stream: the source, and
+    the frames at the tool's default 48 x 176 x 320 and at a cut."""
+    gen = _gen_sample_stream()
+    assert inspect.getsource(common.sample_clip) == \
+        inspect.getsource(gen.sample_clip)
+    args = shape or ()
+    assert common.sample_clip(*args).tobytes() == \
+        gen.sample_clip(*args).tobytes()
 
 
 def test_step_progress_is_the_original():

@@ -1,6 +1,7 @@
 """What the experiment tools and the smoke run share: the device (a card
 unless asked for the CPU), a timer, PsyV features of random tiles and
-the two synthetic clips of the benchmark (the noise clip and cuts_v2)."""
+the synthetic clips of the benchmark (the noise clip, cuts_v2 and the
+plasma clip of the web player's sample stream)."""
 from __future__ import annotations
 
 import time
@@ -105,4 +106,40 @@ def synthetic_clip_v2(f, h, w, seed=0):
                     + ((xx % 128 + t) % 128)[..., None] * mix[1]
             frames[i] = np.clip(base + rng.normal(0, 6, (h, w, 3)), 0, 255)
             frames[i, h - h_static:] = static_band
+    return frames
+
+
+# the clip of tools/gen_sample_stream.py, which writes the web player's
+# decoders/web/sample.gtm with the JAX encoder: a copy of its source,
+# since that script imports jax
+def sample_clip(w=320, h=176, n=48):
+    """Two shots of animated plasma + moving sprites."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = np.zeros((n, h, w, 3), np.uint8)
+    for i in range(n):
+        shot = i >= n // 2
+        t = i * 0.25
+        if not shot:
+            v = (np.sin(xx * 0.045 + t) + np.sin(yy * 0.06 - 0.7 * t)
+                 + np.sin((xx + yy) * 0.03 + 0.4 * t))
+            r = 128 + 90 * np.sin(v * 1.1)
+            g = 128 + 90 * np.sin(v * 1.1 + 2.1)
+            b = 128 + 90 * np.sin(v * 1.1 + 4.2)
+        else:
+            v = (np.sin(np.hypot(xx - w / 2, yy - h / 2) * 0.07 - t)
+                 + np.sin(xx * 0.02 + 2 * t))
+            r = 110 + 100 * np.sin(v + 1.0)
+            g = 120 + 80 * np.sin(v * 1.3)
+            b = 150 + 100 * np.sin(v * 0.8 - 1.0)
+        f = np.stack([r, g, b], -1)
+        # moving sprites (sharp edges exercise tile reuse + mirrors)
+        for s in range(3):
+            cx = int((w - 40) * (0.5 + 0.45 * np.sin(t * (0.6 + 0.2 * s)
+                                                     + s * 2.1))) + 20
+            cy = int((h - 40) * (0.5 + 0.45 * np.cos(t * (0.5 + 0.15 * s)
+                                                     + s * 1.3))) + 20
+            col = np.array([[255, 230, 40], [40, 220, 255],
+                            [255, 70, 160]][s], np.float32)
+            f[cy - 10:cy + 10, cx - 10:cx + 10] = col
+        frames[i] = np.clip(f, 0, 255).astype(np.uint8)
     return frames

@@ -73,6 +73,16 @@ JSON line; any failure raises and exits non-zero):
         launched once per stage-3 call of each encode (the mesh's split
         over its 8 shards) and the prepare once per keyframe; its stream
         beside the CPU port's;
+     i. the round-trip counter (tiler_tpu_torch.utils.dispatch), right
+        after path c: what torch.cuda.set_sync_debug_mode('warn') flags
+        for one call of each kind of operation, then the slice encoded
+        once under that check, the flagged syncs split per step beside
+        the step's noted h2d/d2h/sync/kernel counts with their top
+        file:line locations; a step with more flagged syncs than noted
+        h2d + d2h + sync fails (the check flags uploads too), as do
+        other bytes than path c's or other launches than K1 22 and its
+        prepare 3; then the small clip on the CPU and on the card, the
+        same noted counts per step;
   5. decode: both 1080p streams through the package's numpy decoder,
      each with PSNR >= 29 dB.
 Then the script's total wall. The last three lines are the kernels'
@@ -189,7 +199,9 @@ def check_prepare(card: str) -> dict:
     transposed tiles bit for bit always; the norms bit for bit on integer
     features (exact sums) and on normal ones but for the plain version's
     double rounding (at most 2 norms may differ, by one ulp). Timed at
-    C x D; its bound is its bytes. Returns its JSON record."""
+    C x D in turns with its plain version and the one library call that
+    gives the norms, torch.linalg.vecdot(c, c) (which writes no k-major
+    copy); its bound is its bytes. Returns its JSON record."""
     import torch
 
     from tiler_tpu_torch.ops import nn_kernels as nk
@@ -216,14 +228,15 @@ def check_prepare(card: str) -> dict:
         say('nn1_prepare_check', candidates=n, dim=d, integers=ints,
             tiles='bit-equal', norms_differ=differ)
     t = turns({'plain': lambda: nk.nn1_prepare_plain(c),
-               'kernel': lambda: nk.prepare(c)})
+               'kernel': lambda: nk.prepare(c),
+               'library': lambda: torch.linalg.vecdot(c, c)})
     t_bytes = 4.0 * (C * D + C * (D + 1)) / PEAK_BYTES
     rec = {'name': 'nn1_prepare', 'route': 'cuda',
            'source': 'tiler_tpu_torch/csrc/nn1.cu',
            'replaces': 'tiler_tpu/ops/pallas_kernels.py:50',
            'launches': 0, 'max_abs_err': worst, 'ms': t['kernel']['ms'],
            'plain_ms': t['plain']['ms'], 'bound_ms': 1e3 * t_bytes,
-           'bound_by': 'bytes', 'library_ms': None}
+           'bound_by': 'bytes', 'library_ms': t['library']['ms']}
     say('nn1_prepare_time', card=card, candidates=C, dim=D, **t)
     return rec
 
@@ -235,7 +248,9 @@ def check_prepare_bf16(card: str) -> dict:
     rounded rows back; the norms bit for bit on integer features and on
     normal ones but for the plain version's double rounding (at most 2
     norms may differ, by one ulp). Timed at C x D over 4 launches in a
-    row; its bound is its bytes. Returns its JSON record."""
+    row, in turns with its plain version and with
+    torch.linalg.vecdot(c, c), the norms alone (no rounded, swizzled
+    copy); its bound is its bytes. Returns its JSON record."""
     import torch
 
     from tiler_tpu_torch.ops import nn_kernels as nk
@@ -266,14 +281,15 @@ def check_prepare_bf16(card: str) -> dict:
         say('nn1_bf16_prepare_check', candidates=n, dim=d, integers=ints,
             tiles='bit-equal', norms_differ=differ)
     t = turns({'plain': lambda: nk.nn1_bf16_prepare_plain(c),
-               'kernel': lambda: nk.prepare_bf16(c)}, calls=4)
+               'kernel': lambda: nk.prepare_bf16(c),
+               'library': lambda: torch.linalg.vecdot(c, c)}, calls=4)
     t_bytes = (4.0 * C * D + 2.0 * C * got.dim_pad + 4.0 * C) / PEAK_BYTES
     rec = {'name': 'nn1_bf16_prepare', 'route': 'cuda',
            'source': 'tiler_tpu_torch/csrc/nn1_bf16.cu',
            'replaces': 'tiler_tpu/ops/pallas_kernels.py:212',
            'launches': 0, 'max_abs_err': worst, 'ms': t['kernel']['ms'],
            'plain_ms': t['plain']['ms'], 'bound_ms': 1e3 * t_bytes,
-           'bound_by': 'bytes', 'library_ms': None}
+           'bound_by': 'bytes', 'library_ms': t['library']['ms']}
     say('nn1_bf16_prepare_time', card=card, candidates=C, dim=D, **t)
     return rec
 
@@ -823,6 +839,156 @@ def check_profiled(card: str) -> None:
                              f'steps {steps}, {k1} K1 kernels')
 
 
+# the message of torch.cuda.set_sync_debug_mode('warn')'s warnings
+SYNC_WARNING = 'called a synchronizing CUDA operation'
+
+
+def _flagged(fn) -> list:
+    """fn() under torch.cuda.set_sync_debug_mode('warn'), every warning
+    kept ('always': they are deduplicated by location otherwise). Returns
+    the flagged syncs' warnings."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter('always')
+            fn(rec)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return [w for w in rec if SYNC_WARNING in str(w.message)]
+
+
+def _where(w) -> str:
+    """A warning's file:line, relative to the checkout or to the Python
+    library it is in."""
+    path = w.filename
+    root = os.path.dirname(os.path.abspath(__file__))
+    if path.startswith(root + os.sep):
+        path = os.path.relpath(path, root)
+    elif 'site-packages' + os.sep in path:
+        path = path.split('site-packages' + os.sep, 1)[1]
+    return f'{path}:{w.lineno}'
+
+
+def sync_flags() -> dict:
+    """How many syncs the runtime's check flags for one call of each
+    operation the counter's kinds name, in this torch on this card."""
+    import torch
+    dev = torch.device('cuda')
+    x = torch.arange(4096, dtype=torch.float32, device=dev).reshape(512, 8)
+    i0 = torch.tensor(3, device=dev)
+    ids = torch.arange(3, device=dev)
+    host = np.ones(64, np.float32)
+    cases = {
+        'torch.cuda.synchronize()': lambda: torch.cuda.synchronize(dev),
+        'Event.synchronize()': lambda: torch.cuda.Event().synchronize(),
+        'Stream.synchronize()':
+            lambda: torch.cuda.current_stream(dev).synchronize(),
+        'x.cpu()': lambda: x.cpu(),
+        'int(x.argmax())': lambda: int(x.argmax()),
+        'bool(t.any())': lambda: bool((x > 5).any()),
+        'x[mask]': lambda: x[x[:, 0] > 5],
+        'torch.nonzero': lambda: torch.nonzero(x[:, 0] > 5),
+        'torch.unique': lambda: torch.unique(x[:, 0] // 7),
+        'torch.unique(dim=0)':
+            lambda: torch.unique(x // 64, dim=0, return_inverse=True),
+        'torch.bincount': lambda: torch.bincount(ids),
+        'x[0-d card tensor]': lambda: x[i0],
+        'x[card index] = -1': lambda: x.__setitem__((ids,), -1.0),
+        'from_numpy(a).to(card)': lambda: torch.from_numpy(host).to(dev),
+        'torch.tensor(1.5, device=card)':
+            lambda: torch.tensor(1.5, device=dev),
+        'x[host index]': lambda: x[np.arange(3)],
+    }
+    return {name: len(_flagged(lambda rec, fn=fn: fn()))
+            for name, fn in cases.items()}
+
+
+def check_dispatch(frames, cfg, card: str, want: bytes) -> None:
+    """Phase i: the slice encoded once under the runtime's sync check,
+    the flagged syncs split per step (run_all's step_hook) beside the
+    step's noted round trips (metrics['dispatches']). A step with more
+    flagged syncs than noted uploads + downloads + waits has a sync the
+    counter misses, and fails the run: the check flags every synchronous
+    copy, uploads too (sync_flags). Kernel launches: K1 22 and its
+    prepare 3. Then the small clip on the CPU and on the card: the same
+    noted counts per step, `kernel` 0 on the CPU and the launches on the
+    card."""
+    import collections
+
+    import torch
+
+    from tiler_tpu_torch.config import EncoderConfig
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    from tiler_tpu_torch.tools.common import synthetic_clip_v2
+    say('sync_flags', card=card, flagged=sync_flags())
+    enc = Encoder(cfg, device='cuda')
+    per_step, out = {}, {}
+
+    def run(rec):
+        mark = [0]
+
+        def hook(step):
+            ws = [w for w in rec[mark[0]:] if SYNC_WARNING in str(w.message)]
+            mark[0] = len(rec)
+            per_step[step] = collections.Counter(_where(w) for w in ws)
+        out['blob'] = enc.run_all(frames, fps=24, fast_lzma=True,
+                                  step_hook=hook)
+    _counts_zero()
+    t0 = time.perf_counter()
+    flagged = _flagged(run)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    noted = enc.state.metrics['dispatches']
+    over = {}
+    for step, c in noted.items():
+        n = sum(per_step[step].values())
+        say('dispatch_step', card=card, step=step, h2d=c['h2d'],
+            d2h=c['d2h'], sync=c['sync'], kernel=c['kernel'],
+            total=c['total'], flagged=n,
+            flagged_minus_d2h_sync=n - c['d2h'] - c['sync'],
+            top=per_step[step].most_common(6))
+        if n > c['total']:
+            over[step] = (n, c['total'])
+    say('dispatch', card=card, wall_s=wall, flagged=len(flagged),
+        noted=sum(c['total'] for c in noted.values()),
+        kernel=sum(c['kernel'] for c in noted.values()), launches=launches,
+        same_bytes=out['blob'] == want)
+    if over:
+        raise AssertionError(f'steps with syncs the counter misses '
+                             f'(flagged, noted): {over}')
+    if out['blob'] != want:
+        raise AssertionError('the slice under the sync check wrote other '
+                             'bytes')
+    if launches != {'nn1': 22, 'nn1_prepare': 3} or \
+            sum(c['kernel'] for c in noted.values()) != 25 or \
+            noted['frame_tiling']['kernel'] != 25:
+        raise AssertionError(f'slice launches {launches}, per step '
+                             f'{ {s: c["kernel"] for s, c in noted.items()} }')
+    small = synthetic_clip_v2(8, 120, 160)
+    small_cfg = EncoderConfig(palette_count=16, max_tiles=400)
+    got = {}
+    for device in ('cpu', 'cuda'):
+        _counts_zero()
+        e = Encoder(small_cfg, device=device)
+        e.run_all(small, fps=24, fast_lzma=True)
+        got[device] = (e.state.metrics['dispatches'], _counts())
+    (cpu, cpu_l), (gpu, gpu_l) = got['cpu'], got['cuda']
+    kinds = ('h2d', 'd2h', 'sync', 'total')
+    same = all({k: cpu[s][k] for k in kinds} == {k: gpu[s][k] for k in kinds}
+               for s in cpu) and list(cpu) == list(gpu)
+    say('dispatch_small', card=card, cpu=cpu, cuda=gpu, same=same,
+        launches=gpu_l)
+    if not same or any(c['kernel'] for c in cpu.values()) or \
+            sum(c['kernel'] for c in gpu.values()) != sum(gpu_l.values()) or \
+            sum(cpu_l.values()):
+        raise AssertionError('the small clip counts otherwise on the CPU '
+                             'and on the card')
+
+
 def _counts_zero() -> None:
     from tiler_tpu_torch.ops import nn_kernels as nk
     nk.LAUNCHES = nk.LAUNCHES_PREP = 0
@@ -1203,8 +1369,10 @@ def check_bench(card: str, slice_blob: bytes, tmp: str) -> dict:
     stream in every run, reach peaks of device memory that differ by less
     than one copy of the clip's source tiles (which a run holding an
     earlier run's encoder would add; the caching allocator's block
-    slack may move a peak by less) and launch K1 once per stage-3 call
-    in each; then
+    slack may move a peak by less), launch K1 once per stage-3 call
+    in each and print its round trips (n_dispatches the sum of the
+    steps' totals; the bench itself raises when a timed run's differ
+    from the first's); then
     tools.decode_bench on the web sample and on the 1080p slice stream on
     the card (each renderer's frames equal to the numpy decoder's).
     Returns the bench's full line."""
@@ -1242,6 +1410,8 @@ def check_bench(card: str, slice_blob: bytes, tmp: str) -> dict:
           and max(full['peak_bytes']) - min(full['peak_bytes'])
           < BENCH_SMALL_CLIP_BYTES
           and full['k1_launches'] == [full['ft_nn_calls']] * 3
+          and full['n_dispatches'] == sum(
+              c['total'] for c in full['dispatches'].values()) > 0
           and full['continuity'] is not None
           and decoded['sample']['frames'] == 48
           and decoded['slice']['frames'] == 16
@@ -1427,6 +1597,7 @@ def main() -> int:
     batch['psnr'] = p
     del decoded
     check_profiled(card)
+    check_dispatch(frames, cfg, card, blob)
 
     with tempfile.TemporaryDirectory() as tmp:
         check_renderers(blob, enc, frames, card)

@@ -23,8 +23,8 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAMPLE = os.path.join(REPO, 'decoders', 'web', 'sample.gtm')
-# the keys the port adds to every entry in place of the JAX package's
-# tunnel counters (n_dispatches, dispatches)
+# the keys the port adds to every entry beside the JAX package's round
+# trips (n_dispatches, dispatches)
 PORT_KEYS = {'ft_nn_calls', 'k1_launches', 'k1_prepare_launches',
              'peak_bytes', 'sha256'}
 # the full line's keys in bench.py's main, and what the port adds there
@@ -201,7 +201,14 @@ def _fixed_state():
         metrics={'dither_phases': {'quantize': 0.125}, 'gt_phases': {},
                  'ft_phases': {'assign': 4.0}, 'n_keyframes': 3,
                  'ft_q_changed_frac': 0.6931, 'ft_pair_dedup': [1.25],
-                 'ft_nn_calls': 22, 'mesh_sharded_wall': {'frac': 0.9}})
+                 'ft_nn_calls': 22, 'mesh_sharded_wall': {'frac': 0.9},
+                 'dispatches': {
+                     'load': {'h2d': 0, 'd2h': 0, 'sync': 1, 'kernel': 0,
+                              'total': 1},
+                     'dither': {'h2d': 118, 'd2h': 124, 'sync': 4,
+                                'kernel': 0, 'total': 246},
+                     'save': {'h2d': 0, 'd2h': 1, 'sync': 1, 'kernel': 0,
+                              'total': 2}}})
 
 
 def _fixed_recs(n=3):
@@ -211,9 +218,10 @@ def _fixed_recs(n=3):
 
 
 def test_report_lines(capsys):
-    """The full line has bench.py's keys but its tunnel counters, plus the
-    port's; the compact headline is printed last; the value is the median
-    of the runs; every number stands beside the card."""
+    """The full line has bench.py's keys, its round trips the sum of the
+    steps' totals, plus the port's; the compact headline is printed last;
+    the value is the median of the runs; every number stands beside the
+    card."""
     st, recs = _fixed_state(), _fixed_recs()
     base = {'cpu_fps': 0.02, 'wall_s': 300.0, 'error': None}
     full, head = bench.report([1.0, 1.5, 1.25], st, b'x' * 100, recs, 29.9,
@@ -221,7 +229,9 @@ def test_report_lines(capsys):
                               'cuda')
     lines = capsys.readouterr().out.splitlines()
     assert [json.loads(ln) for ln in lines] == [full, head]
-    assert set(full) == JAX_FULL_KEYS - TUNNEL | FULL_ADDED
+    assert set(full) == JAX_FULL_KEYS | FULL_ADDED
+    assert full['n_dispatches'] == 1 + 246 + 2
+    assert full['dispatches'] == st.metrics['dispatches']
     assert set(head) == JAX_HEADLINE_KEYS | {'card'}
     assert head['metric'] == full['metric'] == \
         f'encode_fps_{bench.W}x{bench.H}_cuda'
@@ -293,7 +303,9 @@ def test_real_content_entry_on_a_small_stream(tmp_path, monkeypatch):
     path = tmp_path / 'city.gtm'
     path.write_bytes(src)
     got = bench.real_content_entry(str(path), device='cpu')
-    assert set(got) == JAX_REAL_KEYS - TUNNEL | PORT_KEYS
+    assert set(got) == JAX_REAL_KEYS | PORT_KEYS
+    assert got['n_dispatches'] == sum(
+        v['total'] for v in got['dispatches'].values()) > 0
     assert got['ref_gtm_bytes'] == len(src) and got['gtm_bytes'] > 0
     assert np.isfinite(got['psnr']) and 10 < got['psnr'] < 99
     assert got['fps'] > 0 and got['n_keyframes'] >= 1
@@ -305,7 +317,7 @@ def test_continuity_entry(monkeypatch):
     monkeypatch.delenv('TILER_BENCH_NO_CONT', raising=False)
     got = bench.continuity_entry(device='cpu')
     assert set(got) == {'metric', 'fps', 'step_times', 'psnr',
-                        'gtm_bytes'} | PORT_KEYS
+                        'gtm_bytes'} | PORT_KEYS | TUNNEL
     assert got['metric'] == 'encode_fps_64x48_noise16_r1_clip'
     assert got['fps'] > 0 and 10 < got['psnr'] < 99
     monkeypatch.setenv('TILER_BENCH_NO_CONT', '1')

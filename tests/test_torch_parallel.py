@@ -431,14 +431,14 @@ def test_ft_row_budget_grouping_byte_identical(dryrun, monkeypatch):
 
 
 def test_metric_keys_are_the_jax_packages(dryrun):
-    """run_all's metric keys (and those of the phase dicts) are
-    tiler_tpu's, but for its tunnel counters and the port's count of
-    stage-3 kernel calls."""
+    """run_all's metric keys (and those of the phase dicts and of the
+    per-step round trips) are tiler_tpu's, but for its upload counter and
+    the port's count of stage-3 kernel calls."""
     mine, theirs = dryrun['enc'].state.metrics, dryrun['jmetrics']
     assert set(mine) - {'ft_nn_calls'} == \
-        set(theirs) - {'dispatches', 'upload_changed_frac'}
+        set(theirs) - {'upload_changed_frac'}
     for key in ('mu_phases', 'gt_phases', 'mesh_sharded_wall',
-                'dither_phases', 'ft_phases'):
+                'dither_phases', 'ft_phases', 'dispatches'):
         assert set(mine[key]) == set(theirs[key]), key
     assert mine['gt_phases']['gt_mu'] == mine['mu_phases']
     assert not mine['mesh_sharded_wall']['measured_on_mesh']

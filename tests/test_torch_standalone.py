@@ -76,7 +76,7 @@ def test_new_modules_are_walked_and_import_no_jax():
             'pipeline.stream', 'pipeline.load', 'decode', '__main__',
             'tools.stage3_precision', 'tools.profile_encode', 'bench',
             'tools.decode_bench', 'tools.bench720', 'tools.bench1080',
-            'graft_entry']
+            'graft_entry', 'utils.dispatch']
     code = _BLOCK + (
         "import importlib\n"
         f"for n in {mods!r}:\n"

@@ -10,8 +10,10 @@ An untimed warm-up encode at the same shapes builds the kernels and the
 CUDA context; then TILER_BENCH_RUNS timed encodes (default 5), each on a
 fresh Encoder, the host clock around Encoder.run_all (which synchronizes
 the device after each step). Every timed run must write the warm-up's
-bytes, or the bench raises. The headline `value` is the median of the
-runs' frames/s, and every run is listed. PSNR is the stream decoded by
+bytes and make the first timed run's host<->card round trips
+(metrics['dispatches'], utils.dispatch), or the bench raises. The
+headline `value` is the median of the runs' frames/s, and every run is
+listed. PSNR is the stream decoded by
 the numpy decoder against the source frames.
 
 The CPU baseline is a child process of this module with
@@ -114,7 +116,7 @@ def _timed_encode(frames, cfg, fps, device, mesh=None):
     """One encode on a fresh Encoder, timed by the host clock: (frames/s,
     encoder, stream, record). The record holds the wall, K1's and its
     prepare's launches, the peak device memory of the cards used (None
-    off a card) and the stream's SHA-256. The encoder's device tensors
+    off a card), the stream's SHA-256 and the per-step round trips. The encoder's device tensors
     are released before it returns, so that no later run's peak counts
     them; its step times and metrics stay."""
     cards = []
@@ -134,7 +136,8 @@ def _timed_encode(frames, cfg, fps, device, mesh=None):
            'k1_prepare_launches': nn_kernels.LAUNCHES_PREP,
            'peak_bytes': max((torch.cuda.max_memory_allocated(c)
                               for c in cards), default=None),
-           'sha256': hashlib.sha256(blob).hexdigest()}
+           'sha256': hashlib.sha256(blob).hexdigest(),
+           'dispatches': enc.state.metrics['dispatches']}
     enc.state.release_device()
     return len(frames) / dt, enc, blob, rec
 
@@ -143,10 +146,13 @@ def _encode_runs(frames, cfg, fps, device, mesh, warm: bool, runs: int):
     """An untimed warm-up encode (with `warm`), then `runs` timed ones
     (_timed_encode). Returns (frames/s per run, the last run's encoder,
     its stream, the per-run records). Raises if a run's stream differs
-    from the warm-up's (without one, from the first run's)."""
-    want = None
+    from the warm-up's (without one, from the first run's), or its round
+    trips from the first timed run's. The warm-up's round trips are the
+    first record's `warmup_dispatches` where they differ."""
+    want = warm_dispatches = None
     if warm:
-        want = _timed_encode(frames, cfg, fps, device, mesh)[2]
+        _, _, want, rec = _timed_encode(frames, cfg, fps, device, mesh)
+        warm_dispatches = rec['dispatches']
     all_fps, recs = [], []
     for _ in range(max(runs, 1)):
         fps_run, enc, blob, rec = _timed_encode(frames, cfg, fps, device,
@@ -157,8 +163,15 @@ def _encode_runs(frames, cfg, fps, device, mesh, warm: bool, runs: int):
                 f'timed run {len(recs)} wrote {len(blob)} bytes '
                 f'({rec["sha256"][:16]}), not the {len(want)} bytes of '
                 f'the first encode ({hashlib.sha256(want).hexdigest()[:16]})')
+        if recs and rec['dispatches'] != recs[0]['dispatches']:
+            raise RuntimeError(
+                f'timed run {len(recs)} made the round trips '
+                f'{rec["dispatches"]}, not the first timed run\'s '
+                f'{recs[0]["dispatches"]}')
         all_fps.append(fps_run)
         recs.append(rec)
+    if warm_dispatches not in (None, recs[0]['dispatches']):
+        recs[0]['warmup_dispatches'] = warm_dispatches
     return all_fps, enc, blob, recs
 
 
@@ -177,11 +190,25 @@ def _phases(st) -> dict:
             'frame_tiling': st.metrics.get('ft_phases')}
 
 
+def _dispatch_total(st) -> int:
+    """The encode's host<->card round trips (h2d + d2h + sync) over every
+    step (utils.dispatch)."""
+    d = st.metrics.get('dispatches') or {}
+    return sum(v.get('total', 0) for v in d.values())
+
+
 def _port_keys(st, recs: list) -> dict:
-    """What the port records in place of the JAX package's tunnel
-    counters: stage 3's 1-NN calls and, per timed run, K1's and its
-    prepare's launches, the peak device memory and the stream's SHA-256."""
-    return {'ft_nn_calls': st.metrics.get('ft_nn_calls'),
+    """The round trips, as the JAX package's bench prints its tunnel
+    counter (n_dispatches, per-step dispatches; the warm-up's beside them
+    where they differ), and what the port records in place of its other
+    tunnel counters: stage 3's 1-NN calls and, per timed run, K1's and
+    its prepare's launches, the peak device memory and the stream's
+    SHA-256."""
+    warm = {'warmup_dispatches': recs[0]['warmup_dispatches']} \
+        if 'warmup_dispatches' in recs[0] else {}
+    return {'n_dispatches': _dispatch_total(st),
+            'dispatches': st.metrics.get('dispatches'), **warm,
+            'ft_nn_calls': st.metrics.get('ft_nn_calls'),
             'k1_launches': [r['k1_launches'] for r in recs],
             'k1_prepare_launches': [r['k1_prepare_launches'] for r in recs],
             'peak_bytes': [r['peak_bytes'] for r in recs],

@@ -21,6 +21,7 @@ import torch
 
 from ..constants import DITHERING_MAP, TILE_W
 
+from ..utils.dispatch import note
 from .color import color_compare_i32, div_trunc
 
 # unique keys per plan pass and tiles per selection pass: bounds the
@@ -30,6 +31,7 @@ _TILE_CHUNK = 131072
 
 
 def _bayer(device) -> torch.Tensor:
+    note('h2d')
     return torch.from_numpy(DITHERING_MAP.astype(np.int64)).to(device)
 
 
@@ -100,7 +102,9 @@ def _dedup_keys(tiles_rgb: torch.Tensor, group_pals: np.ndarray,
     t = tiles_rgb.reshape(n, 64, 3).to(torch.int64)
     keys = (t[..., 0] | (t[..., 1] << 8) | (t[..., 2] << 16)
             | (pal_group.to(torch.int64)[:, None] << 24))
+    note('d2h')     # the unique keys' count
     uniq, inv = torch.unique(keys.reshape(-1), return_inverse=True)
+    note('h2d')
     pals = torch.from_numpy(np.ascontiguousarray(group_pals)).to(
         tiles_rgb.device)
     return uniq, inv.reshape(n, 64), pals

@@ -15,6 +15,7 @@ import torch
 from ..constants import (DCT_BASIS_FLAT, DCT_QUANT, TILE_DCT_SIZE,
                                  TILE_W, UV_RATIO)
 
+from ..utils.dispatch import note
 from . import color
 
 
@@ -117,6 +118,7 @@ def pal_tiles_to_cpn(tiles_pal: torch.Tensor, palettes_rgb: torch.Tensor,
 
 def _basis_tensors(use_wavelets: bool, q_weighting: bool, device):
     basis, weights = feature_basis(use_wavelets, q_weighting)
+    note('h2d', 2)
     return (torch.from_numpy(basis).to(device),
             torch.from_numpy(weights).to(device))
 

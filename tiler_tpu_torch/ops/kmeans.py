@@ -4,12 +4,16 @@ tiler_tpu/ops/kmeans.py.
 Distances are one [N,D]@[D,k] float32 matmul; the update is a one-hot
 [k,N]@[N,D+1] float32 matmul (per-cluster sums and counts together), not
 `index_add_`, whose CUDA atomics reorder float sums from run to run. The
-k-means++ draws come from ops.prng, bit-identical to jax.random.
+k-means++ draws come from ops.prng, bit-identical to jax.random. Each
+draw makes the host wait on the card three times: two scalar uploads
+(prng.uniform) and the drawn index's download (prng.categorical's int);
+each Lloyd iteration once, for its convergence test.
 """
 from __future__ import annotations
 
 import torch
 
+from ..utils.dispatch import note
 from . import prng
 
 _SEED = 0x42381337   # the JAX package's k-means++ seed
@@ -69,6 +73,7 @@ def kmeans_core(x: torch.Tensor, k: int, max_iters: int = _MAX_ITERS,
     while it < max_iters:
         cents = _update(x, labels, k, cents)
         new_labels = assign(x, x2, cents)
+        note('d2h')
         changed = bool((new_labels != labels).any())
         labels = new_labels
         it += 1

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import DISSIM_SUB_MATCHING_BITS
+from ..utils.dispatch import note
 
 _BIG = 2 ** 30
 _BITS = DISSIM_SUB_MATCHING_BITS
@@ -111,6 +112,7 @@ class _Shards:
     def mask(self, vals: list, g: torch.Tensor) -> None:
         """vals[s][lane, g[lane]] = -1 where range s owns point g[lane]."""
         if len(vals) == 1:
+            note('h2d')     # the fill value
             vals[0][self.lanes[0], g] = -1
             return
         for s, v in enumerate(vals):
@@ -235,6 +237,7 @@ class _Broadcast:
                + self.xi.long()
                + (torch.arange(g, device=dev) * (k * a * m))[:, None, None])
         counts = torch.zeros(g * k * a * m, dtype=torch.int32, device=dev)
+        note('d2h', 2)      # the mask's rows and their count
         counts.index_add_(0, ids[valid_n].reshape(-1),
                           torch.ones(int(valid_n.sum()) * a,
                                      dtype=torch.int32, device=dev))
@@ -293,6 +296,7 @@ def _solve(sh: _Shards, valid_k, start, m: int, max_iters: int):
     while True:
         active = active & (cost < prev_cost) & (moves > 0) \
             & (iters < max_iters)
+        note('d2h')
         if not bool(active.any()):
             break
         new_cents = update(cents, labels)
@@ -420,6 +424,7 @@ def kmodes_batch_gather(sigs: torch.Tensor, bins_sel: list[np.ndarray],
             idxmat[j, :len(bins_sel[i])] = bins_sel[i]
             valid_n[j, :len(bins_sel[i])] = True
             valid_k[j, :bins_k[i]] = True
+        note('h2d', 4)      # idxmat, valid_n, the starts and valid_k
         x = sigs[torch.from_numpy(idxmat).to(dev)]
         vn = torch.from_numpy(valid_n).to(dev)
         cuts = np.array_split(np.arange(n_pad), len(devices or [dev]))
@@ -432,6 +437,7 @@ def kmodes_batch_gather(sigs: torch.Tensor, bins_sel: list[np.ndarray],
         labels, cents, winner, iters, cost = _solve(
             sh, torch.from_numpy(valid_k).to(dev), start, n_modalities,
             max_iters)
+        note('d2h', 5)
         labels = labels.cpu().numpy()
         cents = cents.cpu().numpy()
         winner = winner.cpu().numpy()

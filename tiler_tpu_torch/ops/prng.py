@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.dispatch import note
+
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _F32_TINY = float(np.finfo(np.float32).tiny)
@@ -49,6 +51,8 @@ def prng_key(seed: int):
 
 
 def _key_tensors(key, device):
+    # a key of Python ints goes up to the device; a split's key is there
+    note('h2d', sum(not isinstance(k, torch.Tensor) for k in key))
     return (torch.as_tensor(key[0], dtype=torch.int64, device=device),
             torch.as_tensor(key[1], dtype=torch.int64, device=device))
 
@@ -75,6 +79,7 @@ def random_bits32(key, n: int | None, device=None):
 def randint(key, minval: int, maxval: int, device=None) -> int:
     """jax.random.randint(key, (), minval, maxval) for int32 output."""
     k1, k2 = split(key, device=device)
+    note('d2h', 2)
     hi = int(random_bits32(k1, None, device))
     lo = int(random_bits32(k2, None, device))
     span = maxval - minval if maxval > minval else 1
@@ -89,6 +94,7 @@ def uniform(key, n: int, minval: float, maxval: float, device=None):
     bits = random_bits32(key, n, device)
     fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fb.view(torch.float32) - 1.0
+    note('h2d', 2)
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
@@ -104,4 +110,5 @@ def categorical(key, logits):
     """jax.random.categorical over a 1-D logits vector: the gumbel-max
     trick, first maximum on ties (torch.argmax's documented rule)."""
     g = gumbel(key, logits.shape[0], logits.device)
+    note('d2h')
     return int(torch.argmax(g + logits))

@@ -86,7 +86,9 @@ def scatter(mesh: Mesh, rows, dim: int = 0) -> list:
     """rows, an array or a tuple of arrays of one length along dim, cut
     by `ranges`: [(shard, device, parts)], parts one range of each
     array. A tensor's ranges go to their shard's device (a view where it
-    is there already), a numpy array's stay on the host."""
+    is there already), a numpy array's stay on the host. A host tensor's
+    ranges are so many uploads, which the caller notes (utils.dispatch)
+    as len(ranges(mesh, n))."""
     rows = rows if isinstance(rows, tuple) else (rows,)
     return [(s, d, tuple(_cut(a, lo, hi, d, dim) for a in rows))
             for s, d, lo, hi in ranges(mesh, rows[0].shape[dim])]

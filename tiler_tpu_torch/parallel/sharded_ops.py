@@ -24,14 +24,17 @@ import torch
 
 from ..ops import features
 from ..pipeline.unique import dedupe_words, tile_words
+from ..utils.dispatch import note
 from .mesh import Mesh
-from .mesh_pipeline import gather, map_rows, replicate, scatter
+from .mesh_pipeline import gather, map_rows, ranges, replicate, scatter
 
 
 def sharded_psyv_features(mesh: Mesh, tiles_rgb: np.ndarray,
                           gamma_value=None, use_lab=False,
                           use_wavelets=False, q_weighting=False):
     """[N,8,8,3] u8 -> [N,192] f32 np with the batch sharded."""
+    note('h2d', len(ranges(mesh, len(tiles_rgb))))
+    note('d2h')
     return map_rows(mesh, features.psyv_features_rgb,
                     torch.from_numpy(np.ascontiguousarray(tiles_rgb)),
                     gamma_value, use_lab, use_wavelets,
@@ -58,6 +61,7 @@ def sharded_kmeans(mesh: Mesh, feats: np.ndarray, k: int,
     from ..ops.kmeans import _plus_plus_init
     dev = mesh.flat[0]
     x = torch.from_numpy(np.ascontiguousarray(feats, np.float32))
+    note('h2d', 1 + len(ranges(mesh, len(x))))   # the seed rows, the shards
     sub = x[:16384].to(dev)
     cents = _plus_plus_init(sub, torch.sum(sub * sub, dim=1), k,
                             prng.prng_key(seed))
@@ -79,10 +83,12 @@ def sharded_kmeans(mesh: Mesh, feats: np.ndarray, k: int,
         new_cents = torch.where(counts[:, None] > 0,
                                 sums / torch.clamp(counts, min=1.0)[:, None],
                                 cents)
+        note('d2h')
         moved = float(torch.sum(torch.abs(new_cents - cents)))
         cents = new_cents
         if moved == 0.0:
             break
+    note('d2h', 2)
     return labels.to(torch.int32).cpu().numpy(), cents.cpu().numpy()
 
 
@@ -110,6 +116,7 @@ def sharded_kmodes(mesh: Mesh, x: np.ndarray, k: int, start_point: int,
     points sharded. Returns (labels [n] int32, centroids [k, A] uint8)."""
     if not 0 < k <= len(x):
         raise ValueError(f'k={k} groups of {len(x)} rows')
+    note('h2d')
     sigs = torch.from_numpy(np.ascontiguousarray(x, np.uint8)).to(
         mesh.flat[0])
     (labels, cents, _win), = sharded_kmodes_batch(
@@ -124,6 +131,8 @@ def sharded_nearest_1(mesh: Mesh, queries: np.ndarray,
     (ops.nn_kernels.nearest_1) per shard against one Prepared set per
     device. Returns (idx [Q] int32, err [Q] f32) as numpy."""
     from ..ops import nn_kernels
+    note('h2d', 1 + len(ranges(mesh, len(queries))))
+    note('d2h', 2)
     c = torch.from_numpy(np.ascontiguousarray(candidates, np.float32)).to(
         mesh.flat[0])
     idx, err = map_rows(mesh, nn_kernels.nearest_1, torch.from_numpy(
@@ -165,6 +174,7 @@ def _unique_count(tiles: torch.Tensor, idx: torch.Tensor, d: int):
     words = tile_words(tiles, idx)
     dst = _hash_words(words) % d
     order = torch.argsort(dst, stable=True)
+    note('d2h', 2)      # bincount finds its length, then counts
     return words[order], idx[order], torch.bincount(dst, minlength=d)
 
 
@@ -186,10 +196,12 @@ def sharded_unique(mesh: Mesh, tiles_pal_dev: torch.Tensor, act: np.ndarray,
         raise ValueError(f'active row {int(act.max())} of {n_tiles} tiles')
     d = mesh.size
     tiles_rep = replicate(mesh, tiles_pal_dev)
+    note('h2d', len(ranges(mesh, len(act))))
     sent = [(s, _unique_count(tiles_rep[dev], idx, d))
             for s, dev, (idx,) in scatter(
                 mesh, torch.from_numpy(act.astype(np.int64)))]
-    # one host sync for the send counts of every (source, destination)
+    # the send counts of every (source, destination): one download a shard
+    note('d2h', len(sent))
     bounds = {s: np.concatenate([[0], np.cumsum(c.cpu().numpy())])
               for s, (_, _, c) in sent}
     sidx, winner = [], []
@@ -207,5 +219,6 @@ def sharded_unique(mesh: Mesh, tiles_pal_dev: torch.Tensor, act: np.ndarray,
         winner.append(dedupe_words(w, i))
     if not sidx:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    note('d2h', 2)
     return (gather(mesh, sidx).cpu().numpy(),
             gather(mesh, winner).cpu().numpy())

@@ -24,7 +24,8 @@ from ..constants import TILE_W, palette_pattern
 
 from ..ops import dither, features, palette
 from ..ops.kmeans import _assign, kmeans_core
-from ..parallel.mesh_pipeline import map_rows
+from ..parallel.mesh_pipeline import map_rows, ranges
+from ..utils.dispatch import note
 from .state import EncoderState
 
 
@@ -50,6 +51,7 @@ def prepare_dither_keyframe(state: EncoderState, k: int) -> None:
     n = len(cell_tiles)
     if n > 1 and cfg.palette_count > 1:
         mesh = state.mesh
+        note('h2d', len(ranges(mesh, n)))   # each shard's cells go up
         feats = map_rows(mesh, _lab_features,
                          torch.from_numpy(cell_tiles.astype(np.int64)),
                          state.device_source_tiles(), _dithering_gamma(cfg),
@@ -58,6 +60,7 @@ def prepare_dither_keyframe(state: EncoderState, k: int) -> None:
             feats, cfg.palette_count,
             assign=lambda x, x2, cents: map_rows(mesh, _assign, (x, x2),
                                                  cents))
+        note('d2h', 2)
         labels = labels_d.cpu().numpy()
         state.palette_centroids[k] = cents_d.cpu().numpy()
     else:
@@ -181,6 +184,7 @@ def run_dither(state: EncoderState) -> EncoderState:
             rows = np.flatnonzero((act_kf >= batch.start)
                                   & (act_kf < batch.stop))
             if rows.size:
+                note('h2d', 2)
                 idx = torch.from_numpy(act[rows].astype(np.int64)).to(dev)
                 dpi_rows = np.maximum(state.tile_dpi[act[rows]], 0)
                 groups = ((act_kf[rows] - batch.start) * cfg.palette_count
@@ -190,6 +194,7 @@ def run_dither(state: EncoderState) -> EncoderState:
                 buf[idx] = dither_cached(
                     state.device_source_tiles()[idx], group_pals,
                     torch.from_numpy(groups.astype(np.int64)).to(dev))
+            note('sync')
             if dev.type == 'cuda':
                 torch.cuda.synchronize(dev)
             t_scan += time.perf_counter() - t0
@@ -200,6 +205,7 @@ def run_dither(state: EncoderState) -> EncoderState:
 
     baked, hf, vf = canonicalize_mirrors(buf)
     state.set_tiles_pal_device(baked)
+    note('d2h', 2)
     hf, vf = hf.cpu().numpy(), vf.cpu().numpy()
     f, th, tw = state.tm_tile.shape
     flat_tiles = state.tm_tile.reshape(-1)

@@ -5,10 +5,11 @@ Reindex -> Smooth -> Save with the frame-axis-parallel stages cut across
 a mesh (parallel.mesh_pipeline; the same bytes at any shard count; one
 device is its 1-shard mesh),
 honouring the config's start/end steps, with the JAX package's
-`step_times` and metric keys but for its tunnel counters
-(`dispatches`, `upload_changed_frac`). Each step's time ends with a
-device synchronize, so it is the step's wall time on the card and not
-its enqueue time.
+`step_times` and metric keys but for its tunnel counter
+`upload_changed_frac`. Each step's time ends with a device synchronize,
+so it is the step's wall time on the card and not its enqueue time;
+metrics['dispatches'][step] holds the step's host<->card round trips
+and kernel launches (utils.dispatch), the synchronize included.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 from ..config import EncoderConfig
 from ..constants import ENCODER_STEPS, equal_quality_tile_count
 from ..parallel.mesh import check_device
+from ..utils import dispatch
 from ..utils.progress import StepProgress
 
 from .state import EncoderState, resolve_device
@@ -167,12 +169,16 @@ class Encoder:
     # -- internals ----------------------------------------------------------
 
     def _timed(self, name, fn, *args):
+        before = dispatch.snapshot()
         t0 = time.perf_counter()
         with torch.profiler.record_function(f'step:{name}'):
             result = fn(*args)
+            dispatch.note('sync')
             if self.device.type == 'cuda':
                 torch.cuda.synchronize(self.device)
         self.state.step_times[name] = time.perf_counter() - t0
+        self.state.metrics.setdefault('dispatches', {})[name] = \
+            dispatch.delta(before)
         self._report(name)
         return result
 

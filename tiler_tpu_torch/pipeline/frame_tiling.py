@@ -31,7 +31,8 @@ from ..config import FTQuality
 from ..constants import TILE_DCT_SIZE, TILE_W
 
 from ..ops import features, knn, nn_kernels
-from ..parallel.mesh_pipeline import map_rows, replicate
+from ..parallel.mesh_pipeline import map_rows, ranges, replicate
+from ..utils.dispatch import note
 from .load import changed_mask
 from .state import EncoderState
 
@@ -44,6 +45,7 @@ def _ft_gamma(cfg):
 
 
 def _sync(dev: torch.device) -> None:
+    note('sync')
     if dev.type == 'cuda':
         torch.cuda.synchronize(dev)
 
@@ -60,6 +62,7 @@ def build_global_dataset(state: EncoderState):
     """[4A,64] float32 mirrored PalPixels on the device + maps to
     (tile, attrs)."""
     act = np.flatnonzero(state.tile_active)
+    note('h2d')
     act_d = torch.from_numpy(act.astype(np.int64)).to(state.device)
     ds = expand_mirrors(state.device_tiles_pal()[act_d])
     return ds, np.repeat(act, 4), np.tile(_ATTR_ORDER, len(act))
@@ -119,6 +122,7 @@ def _chunk_feats(tiles, pal, hm, vm, tiles_pal_d, pals_d, cfg):
                       device=dev)
     for lo in range(0, len(tiles), _FEAT_CHUNK):
         hi = min(len(tiles), lo + _FEAT_CHUNK)
+        note('h2d', 4)      # the tiles, palettes and two mirror flags
 
         def up(a, dtype=torch.int64):
             return torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(
@@ -143,6 +147,7 @@ def candidate_features(state: EncoderState, k: int, used, tile_of,
     n_tiles = int(state.n_tiles)
     dev = state.device
     tiles_pal_d = state.device_tiles_pal()
+    note('h2d')
     pals_d = torch.from_numpy(np.ascontiguousarray(
         state.palettes_rgb[k])).to(dev)
 
@@ -161,12 +166,14 @@ def candidate_features(state: EncoderState, k: int, used, tile_of,
     if pp is not None and len(uq) <= 0.5 * c:
         zeros = np.zeros(len(uq), bool)
         base = chunk_feats(uq % n_tiles, uq // n_tiles, zeros, zeros)
+        note('h2d', 3)
         perm4 = torch.from_numpy(pp[0]).to(dev)
         sign4 = torch.from_numpy(pp[1]).to(dev)
         inv_d = torch.from_numpy(inv.astype(np.int64)).to(dev)
         feats = torch.empty((c, TILE_DCT_SIZE), dtype=torch.float32,
                             device=dev)
         for a in range(4):
+            note('h2d')
             rows = torch.from_numpy(np.flatnonzero(attrs == a)).to(dev)
             if rows.numel():
                 feats[rows] = base[inv_d[rows]][:, perm4[a]] \
@@ -216,9 +223,11 @@ def _assign_keyframe(state: EncoderState, k: int, cands, ch_all, src_all):
     ch[0, :] = True
     changed = np.flatnonzero(ch.ravel())
     rows = (s * cells + changed).astype(np.int64)
+    note('h2d', len(ranges(state.mesh, len(rows))))   # each shard's cells
     run_idx, run_err, calls = map_rows(
         state.mesh, assign_rows, torch.from_numpy(rows), src_all, cands,
         _ft_gamma(cfg), cfg.use_wavelets)
+    note('d2h', 2)
     run_idx, run_err = run_idx.cpu().numpy(), run_err.cpu().numpy()
     # forward fill: each cell takes the result computed at its most
     # recent changed frame; the fill never crosses a keyframe start
@@ -250,10 +259,12 @@ def run_frame_tiling(state: EncoderState) -> EncoderState:
     # ---- stage 1, all keyframes in one k-NN pass over the dataset ----
     t0 = time.perf_counter()
     mark_q = [_mark_queries_idx(state, k) for k in range(n_kf)]
+    note('h2d')
     q_idx = torch.from_numpy(np.concatenate([m[0] for m in mark_q])
                              .astype(np.int64)).to(dev)
     queries = state.device_tiles_pal()[q_idx].reshape(len(q_idx), -1)
     idxs_d, keep_d = map_rows(mesh, knn.nearest_k_keepmask, queries, ds, 8)
+    note('d2h', 2)
     idxs_all, keep_all = idxs_d.cpu().numpy(), keep_d.cpu().numpy()
     used_list = []
     off = 0

@@ -27,7 +27,8 @@ from ..bitstream.gtm import read_gts, write_gts
 from ..constants import KMODES_ZONE_COUNT, equal_quality_tile_count
 
 from ..ops.kmodes import kmodes_batch_gather
-from ..parallel.mesh_pipeline import map_rows
+from ..parallel.mesh_pipeline import map_rows, ranges
+from ..utils.dispatch import note
 from .reindex import run_reindex
 from .state import EncoderState
 from .unique import run_make_unique
@@ -70,9 +71,11 @@ def compute_global_tiling_fwd_device(state: EncoderState, cfg,
     t0 = time.perf_counter()
     n = state.n_tiles
     act = np.flatnonzero(state.tile_active)
+    note('h2d', len(ranges(state.mesh, len(act))))  # each shard's rows
     sigs, sums_d = map_rows(state.mesh, _signature_rows,
                             torch.from_numpy(act.astype(np.int64)),
                             state.device_tiles_pal(), cfg.tile_palette_size)
+    note('d2h')
     sums = sums_d.cpu().numpy()
     dpi = state.tile_dpi[act]
 
@@ -213,6 +216,7 @@ def run_reload_tiling(state: EncoderState, gts_path: str) -> EncoderState:
     gts_tiles, gts_pal_size = read_gts(gts_path)
     # rescale palette indices to the current palette size
     # (main.pas:4436-4438)
+    note('h2d', 2)      # the tileset and the active rows
     scaled = torch.from_numpy(
         (gts_tiles.astype(np.int64) * cfg.tile_palette_size
          // gts_pal_size).astype(np.uint8)).to(dev)
@@ -225,7 +229,9 @@ def run_reload_tiling(state: EncoderState, gts_path: str) -> EncoderState:
     tiles = state.device_tiles_pal().clone()
     sigs, _ = tile_signatures(tiles, act, cfg.tile_palette_size)
     signi = pal_signi(tiles[act], cfg.tile_palette_size)
+    note('d2h', 2)      # the bins' count, then their values
     for s in torch.unique(signi).tolist():
+        note('d2h', 2)
         rows = torch.nonzero(signi == s)[:, 0]
         cand = torch.nonzero(ds_signi == s)[:, 0]
         if cand.numel():

@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.dispatch import note
 from .state import EncoderState
 
 
@@ -28,6 +29,7 @@ def run_reindex(state: EncoderState) -> EncoderState:
     order, idx_map = compute_reindex(use)
 
     state.tiles_rgb = state.tiles_rgb[order]
+    note('h2d')
     order_d = torch.from_numpy(order.astype(np.int64)).to(state.device)
     state.set_tiles_pal_device(state.device_tiles_pal()[order_d])
     state.tile_use = use[order]

@@ -20,6 +20,7 @@ from ..constants import TILE_DCT_SIZE
 
 from ..ops import features
 from ..parallel.mesh_pipeline import map_rows, replicate
+from ..utils.dispatch import note
 from .state import EncoderState
 
 _SQRT_FACTOR = 1.0 / TILE_DCT_SIZE
@@ -85,6 +86,7 @@ def run_smooth(state: EncoderState) -> EncoderState:
     tiles = replicate(state.mesh, state.device_tiles_pal())
 
     def up(a, s, e, dtype):
+        note('h2d')
         return torch.from_numpy(
             np.ascontiguousarray(a[s:e + 1].reshape(e - s + 1, cells))
         ).to(dev, dtype)
@@ -97,8 +99,10 @@ def run_smooth(state: EncoderState) -> EncoderState:
                 up(state.tm_pal, s, e, torch.int64),
                 up(state.tm_h, s, e, torch.bool),
                 up(state.tm_v, s, e, torch.bool))
+        note('h2d')
         pals_k = torch.from_numpy(state.palettes_rgb[k]).to(dev)
         # every cell's frame chain is independent: the cells are cut
+        note('d2h', 5)
         stm = [t.cpu().numpy() for t in map_rows(
             state.mesh, _smooth_cells, rows, tiles, pals_k, strength,
             dim=1)]

@@ -23,6 +23,7 @@ import torch
 from ..config import EncoderConfig, FTQuality
 from ..constants import TILE_W
 from ..parallel.mesh import Mesh, make_mesh
+from ..utils.dispatch import note
 
 # the state's array fields, in the JAX package's checkpoint order
 ARRAY_FIELDS = [
@@ -100,6 +101,7 @@ class EncoderState:
         per frames array from one upload of the frames."""
         key = id(self.frames_rgb)
         if self._src_tiles.get('key') != key:
+            note('h2d')
             fr = torch.from_numpy(self.frames_rgb).to(self.device)
             f, hh, ww, _ = fr.shape
             th, tw = hh // TILE_W, ww // TILE_W
@@ -115,6 +117,7 @@ class EncoderState:
     @property
     def tiles_pal(self) -> Optional[np.ndarray]:
         if self._tiles_pal_host is None and self._tiles_pal_dev is not None:
+            note('d2h')
             self._tiles_pal_host = self._tiles_pal_dev.cpu().numpy().copy()
         return self._tiles_pal_host
 
@@ -133,6 +136,7 @@ class EncoderState:
         drops the device tensor nor leaves a host copy behind, so the
         steps after a checkpoint go on with the same device tensor."""
         if self._tiles_pal_host is None and self._tiles_pal_dev is not None:
+            note('d2h')
             return self._tiles_pal_dev.cpu().numpy()
         return self._tiles_pal_host
 
@@ -143,6 +147,7 @@ class EncoderState:
         GOP's state can be kept for assembly without holding the card's
         memory."""
         if self._tiles_pal_host is None and self._tiles_pal_dev is not None:
+            note('d2h')
             self._tiles_pal_host = self._tiles_pal_dev.cpu().numpy().copy()
         self._tiles_pal_dev = None
         self._src_tiles = {}
@@ -151,6 +156,7 @@ class EncoderState:
         """tiles_pal on the device, uploaded once when the host side is
         authoritative."""
         if self._tiles_pal_dev is None:
+            note('h2d')
             self._tiles_pal_dev = torch.from_numpy(
                 np.ascontiguousarray(self._tiles_pal_host)).to(self.device)
         return self._tiles_pal_dev

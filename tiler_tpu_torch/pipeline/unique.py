@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh_pipeline import mesh_ok
+from ..utils.dispatch import note
 from .state import EncoderState
 
 
@@ -36,6 +37,9 @@ def tile_words(tiles_u8: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def dedupe_words(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Per row, the lowest tile id among the rows equal to it."""
+    # the groups' count, then their largest id, come to the host (the
+    # CUDA runtime's sync check flags only the second)
+    note('d2h', 2)
     _, inv = torch.unique(words, dim=0, return_inverse=True)
     win = torch.full((int(inv.max()) + 1,), torch.iinfo(torch.int64).max,
                      dtype=torch.int64, device=idx.device)
@@ -63,10 +67,12 @@ def compute_unique_fwd_device(state: EncoderState):
         t0 = time.perf_counter()
     else:
         sidx = act
+        note('h2d')
         idx = torch.from_numpy(act.astype(np.int64)).to(state.device)
         winner = dedupe_words(tile_words(state.device_tiles_pal(), idx), idx)
         t_queue = time.perf_counter() - t0
         t0 = time.perf_counter()
+        note('d2h')
         winner = winner.cpu().numpy()
     state.metrics['mu_phases'] = {
         'queue': round(t_queue, 3),
@@ -101,6 +107,7 @@ def run_make_unique(state: EncoderState) -> EncoderState:
     fwd, new_use, new_active, losers = compute_unique_fwd_device(state)
     if losers.size:
         tiles = state.device_tiles_pal().clone()
+        note('h2d', 2)      # the losers' rows and the fill value
         tiles[torch.from_numpy(losers.astype(np.int64)).to(state.device)] = 0
         state.set_tiles_pal_device(tiles)  # reference zeroes merged losers
     state.tile_use = new_use

@@ -7,13 +7,15 @@ Distances are one [N,D]@[D,k] float32 matmul; the update is a one-hot
 k-means++ draws come from ops.prng, bit-identical to jax.random. Each
 draw makes the host wait on the card three times: two scalar uploads
 (prng.uniform) and the drawn index's download (prng.categorical's int);
-each Lloyd iteration once, for its convergence test.
+each Lloyd iteration once, for its convergence test. kmeans_core opens
+the Dither step's spans 'dither/kmeans_pp' around the seeding and
+'dither/lloyd' around Lloyd's iterations (utils.dispatch.span).
 """
 from __future__ import annotations
 
 import torch
 
-from ..utils.dispatch import note
+from ..utils.dispatch import note, span
 from . import prng
 
 _SEED = 0x42381337   # the JAX package's k-means++ seed
@@ -67,17 +69,19 @@ def kmeans_core(x: torch.Tensor, k: int, max_iters: int = _MAX_ITERS,
     int32, centroids [k,D] f32, n_iters)."""
     x = x.to(torch.float32)
     x2 = torch.sum(x * x, dim=1)
-    cents = _plus_plus_init(x, x2, k, prng.prng_key(seed))
-    labels = assign(x, x2, cents)
-    it = 0
-    while it < max_iters:
+    with span('dither/kmeans_pp'):
+        cents = _plus_plus_init(x, x2, k, prng.prng_key(seed))
+    with span('dither/lloyd'):
+        labels = assign(x, x2, cents)
+        it = 0
+        while it < max_iters:
+            cents = _update(x, labels, k, cents)
+            new_labels = assign(x, x2, cents)
+            note('d2h')
+            changed = bool((new_labels != labels).any())
+            labels = new_labels
+            it += 1
+            if not changed:
+                break
         cents = _update(x, labels, k, cents)
-        new_labels = assign(x, x2, cents)
-        note('d2h')
-        changed = bool((new_labels != labels).any())
-        labels = new_labels
-        it += 1
-        if not changed:
-            break
-    cents = _update(x, labels, k, cents)
     return labels.to(torch.int32), cents, it

@@ -15,7 +15,6 @@ from __future__ import annotations
 import concurrent.futures as cf
 import functools
 import os
-import time
 
 import numpy as np
 import torch
@@ -25,7 +24,7 @@ from ..constants import TILE_W, palette_pattern
 from ..ops import dither, features, palette
 from ..ops.kmeans import _assign, kmeans_core
 from ..parallel.mesh_pipeline import map_rows, ranges
-from ..utils.dispatch import note
+from ..utils.dispatch import note, phases, span, spans
 from .state import EncoderState
 
 
@@ -51,11 +50,12 @@ def prepare_dither_keyframe(state: EncoderState, k: int) -> None:
     n = len(cell_tiles)
     if n > 1 and cfg.palette_count > 1:
         mesh = state.mesh
-        note('h2d', len(ranges(mesh, n)))   # each shard's cells go up
-        feats = map_rows(mesh, _lab_features,
-                         torch.from_numpy(cell_tiles.astype(np.int64)),
-                         state.device_source_tiles(), _dithering_gamma(cfg),
-                         cfg.use_wavelets)
+        with span('dither/features'):
+            note('h2d', len(ranges(mesh, n)))   # each shard's cells go up
+            feats = map_rows(mesh, _lab_features,
+                             torch.from_numpy(cell_tiles.astype(np.int64)),
+                             state.device_source_tiles(),
+                             _dithering_gamma(cfg), cfg.use_wavelets)
         labels_d, cents_d, _ = kmeans_core(
             feats, cfg.palette_count,
             assign=lambda x, x2, cents: map_rows(mesh, _assign, (x, x2),
@@ -137,11 +137,21 @@ def canonicalize_mirrors(tiles_u8: torch.Tensor):
     return t, hf, vf
 
 
+DITHER_PHASES = ('prepare_kmeans', 'quantize', 'dither', 'features',
+                 'kmeans_pp', 'lloyd', 'mirrors')
+
+
 def run_dither(state: EncoderState) -> EncoderState:
     """Keyframe k's host quantize overlaps keyframe k+1's device k-means;
     the Knoll or Yliluoma scans run per keyframe batch once its palettes
-    are final. Phase times: 'prepare_kmeans' is the k-means loop wall,
-    'quantize' the blocked wait on the quantizers, 'dither' the scans."""
+    are final. metrics['dither_phases'] holds the host seconds of the
+    spans 'dither/<key>' (utils.dispatch.span), summed over keyframes:
+    'prepare_kmeans' the k-means loop wall, which holds each keyframe's
+    'features' (PsyV LAB rows), 'kmeans_pp' (the k-means++ seeding) and
+    'lloyd' (Lloyd's iterations), both opened in ops.kmeans.kmeans_core;
+    'quantize' the blocked wait on the quantizers, 'dither' the scans,
+    'mirrors' the mirror canonicalization with its download and the
+    tilemap copies."""
     cfg = state.config
     if cfg.use_thomas_knoll:
         dither_cached = functools.partial(
@@ -152,7 +162,6 @@ def run_dither(state: EncoderState) -> EncoderState:
             dither.yliluoma_dither_tiles_cached,
             mixed_colors=cfg.yliluoma_mix)
     n_kf = len(state.keyframes)
-    phases = {}
     dev = state.device
     kf_of = state.kf_of_frame()
     tile_kf = np.repeat(kf_of, state.tilemap_size)  # identity layout
@@ -164,52 +173,50 @@ def run_dither(state: EncoderState) -> EncoderState:
     # keyframes per scan; with few keyframes each scan starts as soon as
     # its own quantize is done
     kb = 1 if n_kf <= 4 else max(1, 256 // cfg.palette_count)
-    t_quant = t_scan = 0.0
+    before = spans()
     with cf.ThreadPoolExecutor(1) as qpool:
-        t0 = time.perf_counter()
         futs = []
-        for k in range(n_kf):
-            prepare_dither_keyframe(state, k)
-            # keyframes' cell ranges are disjoint (identity tilemap), so
-            # quantize(k) reading tile_dpi is safe against prepare(k+1)
-            futs.append(qpool.submit(quantize_keyframe_palettes, state, k))
-        phases['prepare_kmeans'] = time.perf_counter() - t0
+        with span('dither/prepare_kmeans'):
+            for k in range(n_kf):
+                prepare_dither_keyframe(state, k)
+                # keyframes' cell ranges are disjoint (identity tilemap),
+                # so quantize(k) reading tile_dpi is safe against
+                # prepare(k+1)
+                futs.append(qpool.submit(quantize_keyframe_palettes, state,
+                                         k))
         for b0 in range(0, n_kf, kb):
             batch = range(b0, min(b0 + kb, n_kf))
-            t0 = time.perf_counter()
-            for k in batch:
-                finish_quantize_keyframe(state, k, futs[k].result())
-            t_quant += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            rows = np.flatnonzero((act_kf >= batch.start)
-                                  & (act_kf < batch.stop))
-            if rows.size:
-                note('h2d', 2)
-                idx = torch.from_numpy(act[rows].astype(np.int64)).to(dev)
-                dpi_rows = np.maximum(state.tile_dpi[act[rows]], 0)
-                groups = ((act_kf[rows] - batch.start) * cfg.palette_count
-                          + dpi_rows)
-                group_pals = state.palettes_rgb[batch.start:batch.stop] \
-                    .reshape(-1, cfg.tile_palette_size, 3)
-                buf[idx] = dither_cached(
-                    state.device_source_tiles()[idx], group_pals,
-                    torch.from_numpy(groups.astype(np.int64)).to(dev))
-            note('sync')
-            if dev.type == 'cuda':
-                torch.cuda.synchronize(dev)
-            t_scan += time.perf_counter() - t0
-    phases['quantize'] = t_quant
-    phases['dither'] = t_scan
-    state.metrics['dither_phases'] = {k: round(v, 3)
-                                      for k, v in phases.items()}
+            with span('dither/quantize'):
+                for k in batch:
+                    finish_quantize_keyframe(state, k, futs[k].result())
+            with span('dither/dither'):
+                rows = np.flatnonzero((act_kf >= batch.start)
+                                      & (act_kf < batch.stop))
+                if rows.size:
+                    note('h2d', 2)
+                    idx = torch.from_numpy(act[rows].astype(np.int64)) \
+                        .to(dev)
+                    dpi_rows = np.maximum(state.tile_dpi[act[rows]], 0)
+                    groups = ((act_kf[rows] - batch.start)
+                              * cfg.palette_count + dpi_rows)
+                    group_pals = state.palettes_rgb[batch.start:batch.stop] \
+                        .reshape(-1, cfg.tile_palette_size, 3)
+                    buf[idx] = dither_cached(
+                        state.device_source_tiles()[idx], group_pals,
+                        torch.from_numpy(groups.astype(np.int64)).to(dev))
+                note('sync')
+                if dev.type == 'cuda':
+                    torch.cuda.synchronize(dev)
 
-    baked, hf, vf = canonicalize_mirrors(buf)
-    state.set_tiles_pal_device(baked)
-    note('d2h', 2)
-    hf, vf = hf.cpu().numpy(), vf.cpu().numpy()
-    f, th, tw = state.tm_tile.shape
-    flat_tiles = state.tm_tile.reshape(-1)
-    state.tm_pal = state.tile_dpi[flat_tiles].reshape(f, th, tw).copy()
-    state.tm_h = hf[flat_tiles].reshape(f, th, tw)
-    state.tm_v = vf[flat_tiles].reshape(f, th, tw)
+    with span('dither/mirrors'):
+        baked, hf, vf = canonicalize_mirrors(buf)
+        state.set_tiles_pal_device(baked)
+        note('d2h', 2)
+        hf, vf = hf.cpu().numpy(), vf.cpu().numpy()
+        f, th, tw = state.tm_tile.shape
+        flat_tiles = state.tm_tile.reshape(-1)
+        state.tm_pal = state.tile_dpi[flat_tiles].reshape(f, th, tw).copy()
+        state.tm_h = hf[flat_tiles].reshape(f, th, tw)
+        state.tm_v = vf[flat_tiles].reshape(f, th, tw)
+    state.metrics['dither_phases'] = phases('dither', before, DITHER_PHASES)
     return state

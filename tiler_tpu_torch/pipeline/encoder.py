@@ -6,14 +6,17 @@ a mesh (parallel.mesh_pipeline; the same bytes at any shard count; one
 device is its 1-shard mesh),
 honouring the config's start/end steps, with the JAX package's
 `step_times` and metric keys but for its tunnel counter
-`upload_changed_frac`. Each step's time ends with a device synchronize,
-so it is the step's wall time on the card and not its enqueue time;
-metrics['dispatches'][step] holds the step's host<->card round trips
-and kernel launches (utils.dispatch), the synchronize included.
+`upload_changed_frac`. Each step runs inside the span 'step:<name>'
+(utils.dispatch.span: a profiler annotation and a host clock) that ends
+with a device synchronize, so step_times[name] is the step's wall time
+on the card and not its enqueue time; metrics['dispatches'][step] holds
+the step's host<->card round trips and kernel launches (utils.dispatch),
+the synchronize included. Inside a step, each phase is a span
+'<step>/<key>', and the step writes the phases' seconds into its dict:
+metrics['dither_phases'], 'mu_phases', 'gt_phases', 'ft_phases' and
+'save_phases' (the JAX package has no Save phases).
 """
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -97,7 +100,8 @@ class Encoder:
 
         profile_dir: when set, the run is traced by torch.profiler (host
         activity, and on a CUDA device the card's kernels and copies),
-        each step under a 'step:<name>' annotation, and the trace is
+        each step under a 'step:<name>' annotation and each of its phases
+        under '<step>/<key>' (utils.dispatch.span), and the trace is
         written into that directory as a Chrome trace
         (<host>_<pid>.<ms>.pt.trace.json; Perfetto, chrome://tracing and
         TensorBoard read it).
@@ -170,13 +174,12 @@ class Encoder:
 
     def _timed(self, name, fn, *args):
         before = dispatch.snapshot()
-        t0 = time.perf_counter()
-        with torch.profiler.record_function(f'step:{name}'):
+        with dispatch.span(f'step:{name}') as step:
             result = fn(*args)
             dispatch.note('sync')
             if self.device.type == 'cuda':
                 torch.cuda.synchronize(self.device)
-        self.state.step_times[name] = time.perf_counter() - t0
+        self.state.step_times[name] = step.seconds
         self.state.metrics.setdefault('dispatches', {})[name] = \
             dispatch.delta(before)
         self._report(name)

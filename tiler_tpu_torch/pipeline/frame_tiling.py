@@ -22,8 +22,6 @@ shard running the functions below on its range, with the same bytes.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -32,7 +30,7 @@ from ..constants import TILE_DCT_SIZE, TILE_W
 
 from ..ops import features, knn, nn_kernels
 from ..parallel.mesh_pipeline import map_rows, ranges, replicate
-from ..utils.dispatch import note
+from ..utils.dispatch import note, phases, span, spans
 from .load import changed_mask
 from .state import EncoderState
 
@@ -238,84 +236,88 @@ def _assign_keyframe(state: EncoderState, k: int, cands, ch_all, src_all):
     return run_idx[fill], run_err[fill], len(changed), calls
 
 
+FT_PHASES = ('dataset', 'upload', 'mark', 'cand_feats', 'assign', 'prepare',
+             'search')
+
+
 def run_frame_tiling(state: EncoderState) -> EncoderState:
+    """metrics['ft_phases'] holds the host seconds of the spans
+    'frame_tiling/<key>' (utils.dispatch.span): 'dataset', 'upload' and
+    'mark' (stage 1) once, 'cand_feats' (stage 2) and 'assign' (stage 3)
+    summed over keyframes; 'assign' holds each keyframe's 'prepare' (the
+    candidates prepared for the kernel) and 'search' (_assign_keyframe)."""
     cfg = state.config
     dev = state.device
     n_kf = len(state.keyframes)
-    phases = {}
-    t0 = time.perf_counter()
-    ds, tile_of, attrs_of = build_global_dataset(state)
-    _sync(dev)
-    phases['dataset'] = round(time.perf_counter() - t0, 3)
-    t0 = time.perf_counter()
+    before = spans()
+    with span('frame_tiling/dataset'):
+        ds, tile_of, attrs_of = build_global_dataset(state)
+        _sync(dev)
     mesh = state.mesh
-    # resident since Dither; one copy per device of the mesh
-    src_all = replicate(mesh, state.device_source_tiles())
-    _sync(dev)
-    phases['upload'] = round(time.perf_counter() - t0, 3)
+    with span('frame_tiling/upload'):
+        # resident since Dither; one copy per device of the mesh
+        src_all = replicate(mesh, state.device_source_tiles())
+        _sync(dev)
     ch_all = state.changed_mask if state.changed_mask is not None else \
         changed_mask(state.frames_rgb, state.tilemap_h, state.tilemap_w)
 
     # ---- stage 1, all keyframes in one k-NN pass over the dataset ----
-    t0 = time.perf_counter()
-    mark_q = [_mark_queries_idx(state, k) for k in range(n_kf)]
-    note('h2d')
-    q_idx = torch.from_numpy(np.concatenate([m[0] for m in mark_q])
-                             .astype(np.int64)).to(dev)
-    queries = state.device_tiles_pal()[q_idx].reshape(len(q_idx), -1)
-    idxs_d, keep_d = map_rows(mesh, knn.nearest_k_keepmask, queries, ds, 8)
-    note('d2h', 2)
-    idxs_all, keep_all = idxs_d.cpu().numpy(), keep_d.cpu().numpy()
-    used_list = []
-    off = 0
-    for k in range(n_kf):
-        uq_tiles, tile_inv = mark_q[k]
-        n_uq = len(uq_tiles)
-        pal_mask = palette_similarity_mask(state, k) \
-            if cfg.ft_quality == FTQuality.MEDIUM else None
-        used_list.append(_mark_from_knn(
-            state, k, idxs_all[off:off + n_uq], keep_all[off:off + n_uq],
-            tile_inv, n_uq, len(ds), pal_mask))
-        off += n_uq
-    del mark_q, idxs_all, keep_all, ds, queries
-    phases['mark'] = round(time.perf_counter() - t0, 3)
+    with span('frame_tiling/mark'):
+        mark_q = [_mark_queries_idx(state, k) for k in range(n_kf)]
+        note('h2d')
+        q_idx = torch.from_numpy(np.concatenate([m[0] for m in mark_q])
+                                 .astype(np.int64)).to(dev)
+        queries = state.device_tiles_pal()[q_idx].reshape(len(q_idx), -1)
+        idxs_d, keep_d = map_rows(mesh, knn.nearest_k_keepmask, queries, ds,
+                                  8)
+        note('d2h', 2)
+        idxs_all, keep_all = idxs_d.cpu().numpy(), keep_d.cpu().numpy()
+        used_list = []
+        off = 0
+        for k in range(n_kf):
+            uq_tiles, tile_inv = mark_q[k]
+            n_uq = len(uq_tiles)
+            pal_mask = palette_similarity_mask(state, k) \
+                if cfg.ft_quality == FTQuality.MEDIUM else None
+            used_list.append(_mark_from_knn(
+                state, k, idxs_all[off:off + n_uq], keep_all[off:off + n_uq],
+                tile_inv, n_uq, len(ds), pal_mask))
+            off += n_uq
+        del mark_q, idxs_all, keep_all, ds, queries
 
     # ---- stages 2+3, one keyframe at a time ----
-    t_feats = t_assign = 0.0
     knn_sizes = []
     nn_calls = np.zeros(mesh.size, np.int64)
     q_total = q_changed = 0
     residual = 0.0
     for k in range(n_kf):
-        t0 = time.perf_counter()
-        feats, cand_pal, cand_tile, cand_attrs = candidate_features(
-            state, k, used_list[k], tile_of, attrs_of)
-        used_list[k] = None
-        _sync(dev)
-        t_feats += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        knn_sizes.append(int(feats.shape[0]))
-        # once per keyframe and device
-        cands = replicate(mesh, feats, nn_kernels.prepare)
-        del feats
-        best_idx, best_err, n_run, calls = _assign_keyframe(
-            state, k, cands, ch_all, src_all)
-        del cands
-        nn_calls += [c or 0 for c in calls]
-        s, e = state.keyframes[k]
-        shape = (e - s + 1, state.tilemap_h, state.tilemap_w)
-        q_total += best_idx.size
-        q_changed += n_run
-        state.tm_tile[s:e + 1] = cand_tile[best_idx].reshape(shape)
-        state.tm_pal[s:e + 1] = cand_pal[best_idx].reshape(shape)
-        state.tm_h[s:e + 1] = (cand_attrs[best_idx] & 1).astype(bool) \
-            .reshape(shape)
-        state.tm_v[s:e + 1] = (cand_attrs[best_idx] & 2).astype(bool) \
-            .reshape(shape)
-        residual += float(best_err.sum())
-        t_assign += time.perf_counter() - t0
-    phases['cand_feats'] = round(t_feats, 3)
-    phases['assign'] = round(t_assign, 3)
+        with span('frame_tiling/cand_feats'):
+            feats, cand_pal, cand_tile, cand_attrs = candidate_features(
+                state, k, used_list[k], tile_of, attrs_of)
+            used_list[k] = None
+            _sync(dev)
+        with span('frame_tiling/assign'):
+            knn_sizes.append(int(feats.shape[0]))
+            with span('frame_tiling/prepare'):
+                # once per keyframe and device
+                cands = replicate(mesh, feats, nn_kernels.prepare)
+            del feats
+            with span('frame_tiling/search'):
+                best_idx, best_err, n_run, calls = _assign_keyframe(
+                    state, k, cands, ch_all, src_all)
+            del cands
+            nn_calls += [c or 0 for c in calls]
+            s, e = state.keyframes[k]
+            shape = (e - s + 1, state.tilemap_h, state.tilemap_w)
+            q_total += best_idx.size
+            q_changed += n_run
+            state.tm_tile[s:e + 1] = cand_tile[best_idx].reshape(shape)
+            state.tm_pal[s:e + 1] = cand_pal[best_idx].reshape(shape)
+            state.tm_h[s:e + 1] = (cand_attrs[best_idx] & 1).astype(bool) \
+                .reshape(shape)
+            state.tm_v[s:e + 1] = (cand_attrs[best_idx] & 2).astype(bool) \
+                .reshape(shape)
+            residual += float(best_err.sum())
 
     state.metrics['ft_residual_err'] = residual
     state.metrics['ft_knn_sizes'] = knn_sizes
@@ -324,5 +326,5 @@ def run_frame_tiling(state: EncoderState) -> EncoderState:
         state.metrics['ft_nn_calls_shards'] = nn_calls.tolist()
     state.metrics['ft_q_changed_frac'] = round(
         q_changed / max(q_total, 1), 4)
-    state.metrics['ft_phases'] = phases
+    state.metrics['ft_phases'] = phases('frame_tiling', before, FT_PHASES)
     return state

@@ -18,8 +18,6 @@ tileset-level computation has an array-argument form
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -28,7 +26,7 @@ from ..constants import KMODES_ZONE_COUNT, equal_quality_tile_count
 
 from ..ops.kmodes import kmodes_batch_gather
 from ..parallel.mesh_pipeline import map_rows, ranges
-from ..utils.dispatch import note
+from ..utils.dispatch import note, phases, span, spans
 from .reindex import run_reindex
 from .state import EncoderState
 from .unique import run_make_unique
@@ -66,73 +64,77 @@ def compute_global_tiling_fwd_device(state: EncoderState, cfg,
                                      desired_tiles: int, kmodes_mesh=None):
     """Returns (fwd, new_use, new_active, merges) for the device tiles;
     the KModes solves' points are cut across kmodes_mesh when it is
-    given."""
-    phases = {}
-    t0 = time.perf_counter()
-    n = state.n_tiles
-    act = np.flatnonzero(state.tile_active)
-    note('h2d', len(ranges(state.mesh, len(act))))  # each shard's rows
-    sigs, sums_d = map_rows(state.mesh, _signature_rows,
-                            torch.from_numpy(act.astype(np.int64)),
-                            state.device_tiles_pal(), cfg.tile_palette_size)
-    note('d2h')
-    sums = sums_d.cpu().numpy()
-    dpi = state.tile_dpi[act]
+    given. metrics['gt_phases'] gets the spans 'global_tiling/sigs_bins'
+    (the signatures and the bins), '.../solve' (KModes) and
+    '.../merge_host' (each cluster into its winner, on the host)."""
+    before = spans()
+    with span('global_tiling/sigs_bins'):
+        n = state.n_tiles
+        act = np.flatnonzero(state.tile_active)
+        note('h2d', len(ranges(state.mesh, len(act))))  # each shard's rows
+        sigs, sums_d = map_rows(state.mesh, _signature_rows,
+                                torch.from_numpy(act.astype(np.int64)),
+                                state.device_tiles_pal(),
+                                cfg.tile_palette_size)
+        note('d2h')
+        sums = sums_d.cpu().numpy()
+        dpi = state.tile_dpi[act]
 
-    bin_sizes = np.bincount(np.maximum(dpi, 0), minlength=cfg.palette_count)
-    eqtc = np.array([equal_quality_tile_count(s) for s in bin_sizes])
-    share = desired_tiles / max(eqtc.sum(), 1)
-    cluster_counts = np.ceil(eqtc * share).astype(np.int64)
+        bin_sizes = np.bincount(np.maximum(dpi, 0),
+                                minlength=cfg.palette_count)
+        eqtc = np.array([equal_quality_tile_count(s) for s in bin_sizes])
+        share = desired_tiles / max(eqtc.sum(), 1)
+        cluster_counts = np.ceil(eqtc * share).astype(np.int64)
 
-    jobs = []
-    for p in range(cfg.palette_count):
-        sel = np.flatnonzero(dpi == p)
-        n_bin, k = len(sel), int(cluster_counts[p])
-        if n_bin == 0 or n_bin <= k or k == 0:
-            continue
-        s = sums[sel]
-        # starting point: the line with the smallest byte sum, last one
-        # on ties (main.pas:4301-4308 uses <=); kmodes_restarts > 0 asks
-        # for best-of-N golden-ratio restarts instead (kmodes.pas:949-966)
-        start = (-cfg.kmodes_restarts if cfg.kmodes_restarts > 0
-                 else int(np.flatnonzero(s == s.min())[-1]))
-        jobs.append(dict(sel=sel, k=k, start=start))
-    phases['sigs_bins'] = round(time.perf_counter() - t0, 3)
-    t0 = time.perf_counter()
+        jobs = []
+        for p in range(cfg.palette_count):
+            sel = np.flatnonzero(dpi == p)
+            n_bin, k = len(sel), int(cluster_counts[p])
+            if n_bin == 0 or n_bin <= k or k == 0:
+                continue
+            s = sums[sel]
+            # starting point: the line with the smallest byte sum, last
+            # one on ties (main.pas:4301-4308 uses <=); kmodes_restarts > 0
+            # asks for best-of-N golden-ratio restarts instead
+            # (kmodes.pas:949-966)
+            start = (-cfg.kmodes_restarts if cfg.kmodes_restarts > 0
+                     else int(np.flatnonzero(s == s.min())[-1]))
+            jobs.append(dict(sel=sel, k=k, start=start))
 
     iters: list = []
-    solved = kmodes_batch_gather(
-        sigs, [j['sel'] for j in jobs], [j['k'] for j in jobs],
-        [j['start'] for j in jobs], cfg.tile_palette_size, iters_out=iters,
-        devices=None if kmodes_mesh is None else kmodes_mesh.flat)
-    phases['solve'] = round(time.perf_counter() - t0, 3)
+    with span('global_tiling/solve'):
+        solved = kmodes_batch_gather(
+            sigs, [j['sel'] for j in jobs], [j['k'] for j in jobs],
+            [j['start'] for j in jobs], cfg.tile_palette_size,
+            iters_out=iters,
+            devices=None if kmodes_mesh is None else kmodes_mesh.flat)
     state.metrics['gt_iters'] = iters
-    t0 = time.perf_counter()
 
-    merges = 0
-    fwd = np.arange(n)
-    new_use = state.tile_use.copy()
-    new_active = state.tile_active.copy()
-    for job, (labels, winner) in zip(jobs, solved):
-        sel, k = job['sel'], job['k']
-        global_idx = act[sel]
-        members = np.bincount(labels, minlength=k)
-        merged = members >= 2
-        if not merged.any():
-            continue
-        win_global = np.where(winner >= 0, global_idx[winner], 0)
-        use_sum = np.bincount(labels, weights=new_use[global_idx],
-                              minlength=k).astype(np.int64)
-        is_loser = merged[labels] & (global_idx != win_global[labels])
-        losers = global_idx[is_loser]
-        fwd[losers] = win_global[labels[is_loser]]
-        new_use[win_global[merged]] += (use_sum
-                                        - new_use[win_global])[merged]
-        new_use[losers] = 0
-        new_active[losers] = False
-        merges += len(losers)
-    phases['merge_host'] = round(time.perf_counter() - t0, 3)
-    state.metrics['gt_phases'] = phases
+    with span('global_tiling/merge_host'):
+        merges = 0
+        fwd = np.arange(n)
+        new_use = state.tile_use.copy()
+        new_active = state.tile_active.copy()
+        for job, (labels, winner) in zip(jobs, solved):
+            sel, k = job['sel'], job['k']
+            global_idx = act[sel]
+            members = np.bincount(labels, minlength=k)
+            merged = members >= 2
+            if not merged.any():
+                continue
+            win_global = np.where(winner >= 0, global_idx[winner], 0)
+            use_sum = np.bincount(labels, weights=new_use[global_idx],
+                                  minlength=k).astype(np.int64)
+            is_loser = merged[labels] & (global_idx != win_global[labels])
+            losers = global_idx[is_loser]
+            fwd[losers] = win_global[labels[is_loser]]
+            new_use[win_global[merged]] += (use_sum
+                                            - new_use[win_global])[merged]
+            new_use[losers] = 0
+            new_active[losers] = False
+            merges += len(losers)
+    state.metrics['gt_phases'] = phases(
+        'global_tiling', before, ('sigs_bins', 'solve', 'merge_host'))
     return fwd, new_use, new_active, merges
 
 
@@ -174,14 +176,15 @@ def run_global_tiling(state: EncoderState, desired_tiles: int | None = None,
     state.tile_active = new_active
     state.tm_tile = fwd[state.tm_tile].astype(np.int32)
     state.metrics['global_tiling_merged'] = merges
-    t0 = time.perf_counter()
-    run_make_unique(state)
-    t1 = time.perf_counter()
-    run_reindex(state)
+    before = spans()
+    with span('global_tiling/unique_reindex'):
+        with span('global_tiling/gt_unique'):
+            run_make_unique(state)
+        with span('global_tiling/gt_reindex'):
+            run_reindex(state)
     gp = state.metrics['gt_phases']
-    gp['gt_unique'] = round(t1 - t0, 3)
-    gp['gt_reindex'] = round(time.perf_counter() - t1, 3)
-    gp['unique_reindex'] = round(time.perf_counter() - t0, 3)
+    gp.update(phases('global_tiling', before,
+                     ('gt_unique', 'gt_reindex', 'unique_reindex')))
     gp['gt_mu'] = state.metrics.get('mu_phases')
     if gts_out:
         n_active = int(state.tile_active.sum())

@@ -4,13 +4,16 @@ counterpart of tiler_tpu/pipeline/save.py.
 Reference: SaveStream (main.pas:4529-4763). Requires a reindexed state
 (dense active tile indices; the device tiles come to the host here).
 Uses the smoothed tilemap when the Smooth step ran, otherwise the plain
-tilemap with no skips.
+tilemap with no skips. metrics['save_phases'] holds the host seconds of
+the spans 'save/pack' (the keyframes' command streams) and 'save/lzma'
+(their compression and the container, writer.tobytes).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..bitstream.gtm import GTMWriter
+from ..utils.dispatch import phases, span, spans
 from .state import EncoderState
 
 
@@ -33,15 +36,20 @@ def run_save(state: EncoderState, fast_lzma: bool = False) -> bytes:
         if smoothed else
         (state.tm_tile, state.tm_pal, state.tm_h, state.tm_v))
     no_skips = np.zeros(state.tilemap_size, bool)
-    for k, (s, e) in enumerate(state.keyframes):
-        frames = [dict(tile_idx=tile[fr].ravel(), pal_idx=pal[fr].ravel(),
-                       hmir=hmir[fr].ravel(), vmir=vmir[fr].ravel(),
-                       smoothed=state.stm_smooth[fr].ravel() if smoothed
-                       else no_skips)
-                  for fr in range(s, e + 1)]
-        writer.add_keyframe(k, int(s), int(e), state.palettes_rgb[k], frames)
-
-    blob = writer.tobytes()
+    before = spans()
+    with span('save/pack'):
+        for k, (s, e) in enumerate(state.keyframes):
+            frames = [dict(tile_idx=tile[fr].ravel(),
+                           pal_idx=pal[fr].ravel(),
+                           hmir=hmir[fr].ravel(), vmir=vmir[fr].ravel(),
+                           smoothed=state.stm_smooth[fr].ravel() if smoothed
+                           else no_skips)
+                      for fr in range(s, e + 1)]
+            writer.add_keyframe(k, int(s), int(e), state.palettes_rgb[k],
+                                frames)
+    with span('save/lzma'):
+        blob = writer.tobytes()
+    state.metrics['save_phases'] = phases('save', before, ('pack', 'lzma'))
     state.metrics['gtm_bytes'] = len(blob)
     state.metrics['kbps'] = (len(blob) / 1024.0 * 8.0 / state.n_frames
                              * state.fps)

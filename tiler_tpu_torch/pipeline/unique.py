@@ -16,13 +16,11 @@ every host over the allgathered global tileset (parallel.gop_exact).
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..parallel.mesh_pipeline import mesh_ok
-from ..utils.dispatch import note
+from ..utils.dispatch import note, phases, span, spans
 from .state import EncoderState
 
 
@@ -51,32 +49,33 @@ def compute_unique_fwd_device(state: EncoderState):
     """Returns (fwd [N] forwarding map, new_use [N], new_active [N],
     losers) for the device-resident tiles, without touching any
     tilemap. metrics['mu_phases'] splits the dedup into its enqueue
-    ('queue') and its wait for the winners ('sync')."""
+    (the span 'make_unique/queue') and its wait for the winners
+    ('make_unique/sync'; 0 on a mesh, whose sharded dedup brings them to
+    the host itself), beside the rows deduplicated."""
     n = state.n_tiles
     fwd = np.arange(n)
     act = np.flatnonzero(state.tile_active)
     if act.size == 0:
         return fwd, state.tile_use.copy(), state.tile_active.copy(), act
-    t0 = time.perf_counter()
+    before = spans()
     if mesh_ok(state.mesh):
         # a lazy import: sharded_ops builds on this module's dedup
         from ..parallel.sharded_ops import sharded_unique
-        sidx, winner = sharded_unique(state.mesh, state.device_tiles_pal(),
-                                      act, n)
-        t_queue = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        with span('make_unique/queue'):
+            sidx, winner = sharded_unique(state.mesh,
+                                          state.device_tiles_pal(), act, n)
     else:
         sidx = act
-        note('h2d')
-        idx = torch.from_numpy(act.astype(np.int64)).to(state.device)
-        winner = dedupe_words(tile_words(state.device_tiles_pal(), idx), idx)
-        t_queue = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        note('d2h')
-        winner = winner.cpu().numpy()
+        with span('make_unique/queue'):
+            note('h2d')
+            idx = torch.from_numpy(act.astype(np.int64)).to(state.device)
+            winner = dedupe_words(tile_words(state.device_tiles_pal(), idx),
+                                  idx)
+        with span('make_unique/sync'):
+            note('d2h')
+            winner = winner.cpu().numpy()
     state.metrics['mu_phases'] = {
-        'queue': round(t_queue, 3),
-        'sync': round(time.perf_counter() - t0, 3),
+        **phases('make_unique', before, ('queue', 'sync')),
         'rows': int(act.size)}
     fwd[sidx] = winner
 

@@ -38,15 +38,34 @@ The count is process-wide and guarded by a lock: the Dither quantize pool
 and the exact GOP-sharded encode's host threads (parallel.gop_exact) call
 noted code. With those hosts as threads of one process, a step's delta
 also counts the notes the other hosts made in the same window.
+
+Beside the counts, span(label) is the program's one clock for its steps
+and phases. A span is a torch.profiler.record_function annotation, so it
+lies on the profiler's clock with the card's kernels and copies, and its
+host wall time (time.perf_counter) adds into a process-wide accumulator
+keyed by label, under the same lock and with the same caveat for threads
+as the counts. Encoder._timed opens 'step:<name>'; a step opens
+'<step>/<key>' per phase, and writes phases(step, before, keys), the
+accumulator's delta over the step, into its phase dict
+(metrics['dither_phases'], ...). A span measures the host: device work
+that a phase only enqueues is finished, and waited for, by a later one.
+With no profiler running a span costs two clock reads, the lock and
+record_function's cheap path, and the program opens a few dozen a run:
+none inside a per-draw, per-iteration or per-search-call loop, none in
+the quantize pool's threads.
 """
 from __future__ import annotations
 
 import threading
+import time
+
+import torch
 
 _NOTED = ('h2d', 'd2h', 'sync')
 _lock = threading.Lock()
 _counts = dict.fromkeys(_NOTED, 0)
 _kernel_base = 0
+_span_s: dict = {}
 
 
 def _launches() -> int:
@@ -80,3 +99,40 @@ def delta(before: dict) -> dict:
     """Interactions since `before` (a snapshot())."""
     now = snapshot()
     return {k: now[k] - before.get(k, 0) for k in now}
+
+
+class span:
+    """`with span(label) as s:` a phase on the host's and the profiler's
+    clocks; s.seconds holds its host wall time once it has closed."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self.seconds = 0.0
+
+    def __enter__(self):
+        self._annotation = torch.profiler.record_function(self.label)
+        self._annotation.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self._t0
+        with _lock:
+            _span_s[self.label] = _span_s.get(self.label, 0.0) + self.seconds
+        self._annotation.__exit__(*exc)
+        return False
+
+
+def spans() -> dict:
+    """Host seconds per span label, summed over the process's spans."""
+    with _lock:
+        return dict(_span_s)
+
+
+def phases(step: str, before: dict, keys) -> dict:
+    """The phase dict of `step`: per key, the host seconds of the spans
+    '<step>/<key>' since `before` (a spans()), to the millisecond; 0.0
+    for a phase that opened no span."""
+    now = spans()
+    return {k: round(now.get(f'{step}/{k}', 0.0)
+                     - before.get(f'{step}/{k}', 0.0), 3) for k in keys}

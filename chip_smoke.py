@@ -3,11 +3,11 @@
 It imports torch, numpy and tiler_tpu_torch only. Phases (each prints one
 JSON line; any failure raises and exits non-zero):
   1. environment: torch/CUDA versions and the card's name and power limit;
-  2. build: both CUDA sources of the 1-NN kernels (tiler_tpu_torch/csrc/
-     nn1.cu with K1, its augmented mode K2 and the prepare kernel,
-     nn1_bf16.cu with K3 and its prepare kernel) from this checkout, one
-     nvcc each, started together, and the package's C++ library (g++);
-     ptxas must report no spills;
+  2. build: the CUDA sources (tiler_tpu_torch/csrc/nn1.cu with K1, its
+     augmented mode K2 and the prepare kernel, nn1_bf16.cu with K3 and
+     its prepare kernel, kmeans_pp.cu with the k-means++ seeding) from
+     this checkout, one nvcc each, started together, and the package's
+     C++ library (g++); ptxas must report no spills;
   3. each kernel vs its plain torch version on the card at the main
      path's shapes (Q=16384 queries, C=262144 candidates, D=192), with
      the tolerance stated per case; kernel, plain version and the
@@ -81,8 +81,19 @@ JSON line; any failure raises and exits non-zero):
         file:line locations; a step with more flagged syncs than noted
         h2d + d2h + sync fails (the check flags uploads too), as do
         other bytes than path c's or other launches than K1 22 and its
-        prepare 3; then the small clip on the CPU and on the card, the
-        same noted counts per step;
+        prepare 3 and the seeding 381; then the small clip on the CPU and
+        on the card, the same noted counts per step;
+     j. the k-means++ seeding kernel (csrc/kmeans_pp.cu), before path c:
+        the slice's keyframe features captured from one encode of it
+        (127 launches a keyframe, all in Dither); at those shapes, at
+        N=16,384, at k=2, at an N no multiple of the kernel's block and
+        at one below a block, the drawn indices and centroids equal to
+        the plain version's on the card, or, at most once, the first
+        index that differs a float64 near tie between two rows far from
+        every centroid drawn before; k-1 launches a seeding; one seeding
+        noting one upload and no wait; a draw timed beside its bound, the
+        plain version and a GEMV over the same rows; the kernel's record
+        joins the kernels' line, with its launches on every driven path;
   5. decode: both 1080p streams through the package's numpy decoder,
      each with PSNR >= 29 dB.
 Then the script's total wall. The last three lines are the kernels'
@@ -599,6 +610,200 @@ def check_variants(card: str) -> list:
     return [aug, bf16]
 
 
+# A near tie where the kernel's and the plain version's draws part: both
+# rows' f32 D^2 within this share of their float64 value (the bound of the
+# cancellation in |x|^2 + |c|^2 - 2 x.c over D^2), and at most one such
+# draw over all of phase j's shapes.
+KPP_TIE_REL, KPP_TIES = 1e-3, 1
+
+
+def _kpp_near_tie(x, x2, sched, idx_a, idx_b) -> dict:
+    """Where two seedings of the same rows under the same schedule first
+    draw differently: the draw, the two rows, and the float64 gap between
+    their scores there (the f32 gumbel of each row plus log of its D^2 to
+    the centroids both drew before, in float64) beside the bound of f32
+    rounding on each score (D^2 formed by cancellation from |x|^2 + |c|^2,
+    and the logs' own rounding). A near tie only where both rows' D^2 is
+    far above the cancellation's error (its share at most KPP_TIE_REL)
+    and the gap within the bound: a row at or near a centroid already
+    drawn never is one."""
+    import torch
+
+    from tiler_tpu_torch.ops import prng
+    i = int(np.flatnonzero(idx_a != idx_b)[0])
+    a, b = int(idx_a[i]), int(idx_b[i])
+    rows = torch.tensor([a, b], device=x.device)
+    x64 = x.index_select(0, rows).double()
+    c64 = x.index_select(0, torch.as_tensor(idx_a[:i], device=x.device)
+                         ).double()
+    d2 = torch.cdist(x64, c64).square().min(dim=1).values.cpu().numpy()
+    g = prng.gumbel((sched[i, 0], sched[i, 1]), x.shape[0], x.device)
+    g = g.index_select(0, rows).double().cpu().numpy()
+    log_d2 = np.log(np.maximum(d2, 1e-30))
+    score = g + log_d2
+    eps = float(np.finfo(np.float32).eps)
+    big = x2.index_select(0, rows).double().cpu().numpy() + float(
+        (c64 * c64).sum(dim=1).max())
+    cancel = np.where(d2 > 0, 64 * eps * big / np.where(d2 > 0, d2, 1),
+                      np.inf)
+    bound = float((cancel + 4 * eps * (np.abs(g) + np.abs(log_d2))).sum())
+    gap = abs(float(score[0] - score[1]))
+    return {'draw': i, 'rows': [a, b], 'd2': d2.tolist(),
+            'cancel_share': cancel.tolist(), 'gap': gap, 'bound': bound,
+            'near_tie': bool((cancel <= KPP_TIE_REL).all() and gap <= bound)}
+
+
+def capture_keyframe_features(card: str, frames, cfg) -> list:
+    """The feature rows of each keyframe's seeding, captured from one
+    encode of the clip on the card, which must launch the seeding kernel
+    palette_count - 1 times a keyframe, all in Dither."""
+    from tiler_tpu_torch.pipeline import dither_step
+    feats, orig = [], dither_step.kmeans_core
+
+    def grab(x, k, *a, **kw):
+        feats.append(x.detach().clone())
+        return orig(x, k, *a, **kw)
+    dither_step.kmeans_core = grab
+    _counts_zero()
+    try:
+        enc, _, wall = encode(frames, cfg, 'cuda')
+    finally:
+        dither_step.kmeans_core = orig
+    m = enc.state.metrics
+    got = _counts()['kmeans_pp']
+    want = _seeding_launches(m, cfg)
+    say('kmeans_pp_encode', card=card, wall_s=wall, keyframes=len(feats),
+        rows=[f.shape[0] for f in feats], launches=got,
+        dither_dispatches=m['dispatches']['dither'],
+        dither_phases=m['dither_phases'])
+    if len(feats) != m['n_keyframes'] or got != want or \
+            m['dispatches']['dither']['kernel'] != want:
+        raise AssertionError(f'slice: {got} seeding launches, '
+                             f'{m["dispatches"]["dither"]["kernel"]} in '
+                             f'Dither, for {want} draws')
+    return feats
+
+
+def kmeans_pp_cases(feats, k: int) -> list:
+    """Phase j's shapes, (name, rows, k): each captured keyframe at k, its
+    first 16,384 rows (parallel.sharded_kmeans), k=2, an N that is no
+    multiple of the kernel's 256-row blocks and one below a block."""
+    cases = [(f'keyframe{i}', f, k) for i, f in enumerate(feats)]
+    return cases + [('sharded_16384', feats[0][:16384], k),
+                    ('k2', feats[0], 2), ('n1000', feats[1][:1000], k),
+                    ('n100', feats[-1][:100], 16)]
+
+
+def compare_kmeans_pp(card: str, cases) -> dict:
+    """The seeding kernel against its plain version on the card at each
+    case: the drawn indices and centroids equal, k-1 launches a seeding.
+    Where the indices part, the centroids before the first index that
+    differs must be equal and that index a near tie (_kpp_near_tie), at
+    most KPP_TIES times over all cases. Returns {case: record}; raises
+    on the first case that fails."""
+    import torch
+
+    from tiler_tpu_torch.ops import kmeans, prng
+    key = prng.prng_key(kmeans._SEED)
+    out, ties = {}, 0
+    for name, x, k in cases:
+        x = x.contiguous()
+        x2 = torch.sum(x * x, dim=1)
+        sched = torch.tensor(kmeans.key_schedule(key, x.shape[0], k),
+                             dtype=torch.int64, device=x.device)
+        before = _counts()['kmeans_pp']
+        ck, ik = kmeans.plus_plus(x, x2, sched)
+        launches = _counts()['kmeans_pp'] - before
+        cp, ip = kmeans.plus_plus_plain(x, x2, sched)
+        ik, ip = ik.cpu().numpy(), ip.cpu().numpy()
+        rec = {'n': x.shape[0], 'k': k, 'launches': launches,
+               'same_idx': bool((ik == ip).all()),
+               'same_cents': bool(torch.equal(ck, cp))}
+        upto = k
+        if not rec['same_idx']:
+            tie = rec['first_diff'] = _kpp_near_tie(x, x2, sched, ik, ip)
+            upto = tie['draw']
+            rec['same_cents_before'] = bool(
+                torch.equal(ck[:upto], cp[:upto]))
+            ties += 1
+        rec['max_abs_err'] = float((ck[:upto] - cp[:upto]).abs().max())
+        say('kmeans_pp_case', card=card, case=name, **rec)
+        out[name] = rec
+        if launches != k - 1:
+            raise AssertionError(f'kmeans_pp {name}: {launches} launches '
+                                 f'for {k - 1} draws')
+        if rec['same_idx'] and not rec['same_cents']:
+            raise AssertionError(f'kmeans_pp {name}: the same rows drawn, '
+                                 f'other centroids')
+        if not rec['same_idx'] and not (rec['first_diff']['near_tie'] and
+                                        rec['same_cents_before']):
+            raise AssertionError(f'kmeans_pp {name}: the draws part at no '
+                                 f'near tie: {rec["first_diff"]}')
+        if ties > KPP_TIES:
+            raise AssertionError(f'kmeans_pp {name}: {ties} near ties, '
+                                 f'more than {KPP_TIES}')
+    return out
+
+
+def check_kmeans_pp(card: str, frames, cfg) -> dict:
+    """Phase j, the k-means++ seeding kernel (csrc/kmeans_pp.cu): the
+    slice's keyframe features captured from one encode of it, the kernel
+    held to its plain version at kmeans_pp_cases' shapes
+    (compare_kmeans_pp). One seeding through _plus_plus_init: one noted
+    upload, no download or wait, the runtime's sync check flagging at
+    most that upload. The time of a draw beside its bound (the rows,
+    their norms and D^2 read, D^2 written, over the memory rate), the
+    plain version's and a GEMV's over the same rows. Returns the kernel's
+    JSON record."""
+    import torch
+
+    from tiler_tpu_torch.ops import kmeans, prng
+    from tiler_tpu_torch.utils import dispatch
+
+    feats = capture_keyframe_features(card, frames, cfg)
+    cases = compare_kmeans_pp(card, kmeans_pp_cases(feats,
+                                                    cfg.palette_count))
+    key = prng.prng_key(kmeans._SEED)
+    x = feats[0].contiguous()
+    n, k = x.shape[0], cfg.palette_count
+    x2 = torch.sum(x * x, dim=1)
+    before = dispatch.snapshot()
+    got = {}
+
+    def seed(rec):
+        got['cents'] = kmeans._plus_plus_init(x, x2, k, key)
+    flagged = _flagged(seed)
+    noted = dispatch.delta(before)
+    sched = torch.tensor(kmeans.key_schedule(key, n, k), dtype=torch.int64,
+                         device=x.device)
+    c = x[0].clone()
+    times = turns({'kernel': lambda: kmeans.plus_plus(x, x2, sched),
+                   'plain': lambda: kmeans.plus_plus_plain(x, x2, sched),
+                   'library': lambda: torch.mv(x, c)}, runs=5)
+    draw_bytes = 4.0 * n * (x.shape[1] + 3)
+    ties = [r['first_diff'] for r in cases.values() if 'first_diff' in r]
+    rec = {'name': 'kmeans_pp', 'route': 'cuda',
+           'source': 'tiler_tpu_torch/csrc/kmeans_pp.cu', 'replaces': 'none',
+           'launches': 0,
+           'max_abs_err': max(r['max_abs_err'] for r in cases.values()),
+           'ms': times['kernel']['ms'] / (k - 1),
+           'plain_ms': times['plain']['ms'] / (k - 1),
+           'bound_ms': 1e3 * draw_bytes / PEAK_BYTES, 'bound_by': 'bytes',
+           'library_ms': times['library']['ms'], 'per': 'draw', 'rows': n,
+           'ms_per_seeding': times['kernel']['ms'],
+           'near_ties': len(ties),
+           'widest_gap': max([t['gap'] for t in ties], default=0.0)}
+    say('kmeans_pp', card=card, noted=noted, flagged_syncs=len(flagged),
+        flagged_at=[_where(w) for w in flagged],
+        share_of_bound=rec['bound_ms'] / rec['ms'],
+        timings={name: t['all'] for name, t in times.items()}, **rec)
+    if (noted['h2d'], noted['d2h'], noted['sync'], noted['kernel']) != \
+            (1, 0, 0, k - 1) or len(flagged) > 1:
+        raise AssertionError(f'the seeding waited: noted {noted}, flagged '
+                             f'{[_where(w) for w in flagged]}')
+    return rec
+
+
 def run_tools(card: str) -> tuple[dict, dict]:
     """The path of K2, K3 and K3's prepare: the three experiment tools at
     their default (full) shapes, in this process, with the launch counts
@@ -641,16 +846,17 @@ def run_tools(card: str) -> tuple[dict, dict]:
 
 
 def encode_counted(frames, cfg, phase: str, card: str, **extra):
-    """Encode on the card with the launch counts of K1 and of the prepare
-    kernel set to 0 just before and read just after; they must equal the
-    stage-3 1-NN calls and the keyframes. Prints the run's times, sizes
-    and counts as `phase`. Returns (encoder, stream, {kernel: launches})."""
+    """Encode on the card with the launch counts of K1, of the prepare
+    kernel and of the seeding kernel set to 0 just before and read just
+    after; they must equal the stage-3 1-NN calls, the keyframes and the
+    seeding's draws. Prints the run's times, sizes and counts as `phase`.
+    Returns (encoder, stream, _counts())."""
     import torch
 
-    from tiler_tpu_torch.ops import nn_kernels as nk
-    nk.LAUNCHES = nk.LAUNCHES_PREP = 0
+    _counts_zero()
     enc, blob, wall = encode(frames, cfg, 'cuda')
-    launches, prepares = nk.LAUNCHES, nk.LAUNCHES_PREP
+    counts = _counts()
+    launches, prepares = counts['nn1'], counts['nn1_prepare']
     m = enc.state.metrics
     say(phase, card=card, wall_s=wall, fps=len(frames) / wall,
         step_times=enc.state.step_times, ft_phases=m['ft_phases'],
@@ -660,14 +866,19 @@ def encode_counted(frames, cfg, phase: str, card: str, **extra):
         ft_knn_sizes=m['ft_knn_sizes'], ft_pair_dedup=m['ft_pair_dedup'],
         ft_nn_calls=m['ft_nn_calls'],
         max_memory_allocated=torch.cuda.max_memory_allocated(),
-        launches=launches, prepare_launches=prepares, **extra)
+        launches=launches, prepare_launches=prepares,
+        seeding_launches=counts['kmeans_pp'], **extra)
     if launches <= 0 or launches != m['ft_nn_calls']:
         raise AssertionError(f'{phase}: kernel launches {launches} != '
                              f'stage-3 1-NN calls {m["ft_nn_calls"]}')
     if prepares != m['n_keyframes']:
         raise AssertionError(f'{phase}: {prepares} prepare launches for '
                              f'{m["n_keyframes"]} keyframes')
-    return enc, blob, {'nn1': launches, 'nn1_prepare': prepares}
+    if counts['kmeans_pp'] != _seeding_launches(m, cfg) or \
+            m['dispatches']['dither']['kernel'] != counts['kmeans_pp']:
+        raise AssertionError(f'{phase}: {counts["kmeans_pp"]} seeding '
+                             f'launches for {m["n_keyframes"]} keyframes')
+    return enc, blob, counts
 
 
 # Path b beyond the six configurations: every EncoderConfig field that
@@ -914,9 +1125,10 @@ def check_dispatch(frames, cfg, card: str, want: bytes) -> None:
     flagged syncs than noted uploads + downloads + waits has a sync the
     counter misses, and fails the run: the check flags every synchronous
     copy, uploads too (sync_flags). Kernel launches: K1 22 and its
-    prepare 3. Then the small clip on the CPU and on the card: the same
-    noted counts per step, `kernel` 0 on the CPU and the launches on the
-    card."""
+    prepare 3 in FrameTiling, the k-means++ seeding 381 (127 draws of 3
+    keyframes) in Dither. Then the small clip on the CPU and on the card:
+    the same noted counts per step, `kernel` 0 on the CPU and the
+    launches on the card."""
     import collections
 
     import torch
@@ -963,9 +1175,10 @@ def check_dispatch(frames, cfg, card: str, want: bytes) -> None:
     if out['blob'] != want:
         raise AssertionError('the slice under the sync check wrote other '
                              'bytes')
-    if launches != {'nn1': 22, 'nn1_prepare': 3} or \
-            sum(c['kernel'] for c in noted.values()) != 25 or \
-            noted['frame_tiling']['kernel'] != 25:
+    if launches != {'nn1': 22, 'nn1_prepare': 3, 'kmeans_pp': 381} or \
+            sum(c['kernel'] for c in noted.values()) != 406 or \
+            noted['frame_tiling']['kernel'] != 25 or \
+            noted['dither']['kernel'] != 381:
         raise AssertionError(f'slice launches {launches}, per step '
                              f'{ {s: c["kernel"] for s, c in noted.items()} }')
     small = synthetic_clip_v2(8, 120, 160)
@@ -991,12 +1204,21 @@ def check_dispatch(frames, cfg, card: str, want: bytes) -> None:
 
 def _counts_zero() -> None:
     from tiler_tpu_torch.ops import nn_kernels as nk
-    nk.LAUNCHES = nk.LAUNCHES_PREP = 0
+    nk.LAUNCHES = nk.LAUNCHES_PREP = nk.LAUNCHES_KPP = 0
 
 
 def _counts() -> dict:
+    """The launches of K1, its prepare kernel and the seeding kernel."""
     from tiler_tpu_torch.ops import nn_kernels as nk
-    return {'nn1': nk.LAUNCHES, 'nn1_prepare': nk.LAUNCHES_PREP}
+    return {'nn1': nk.LAUNCHES, 'nn1_prepare': nk.LAUNCHES_PREP,
+            'kmeans_pp': nk.LAUNCHES_KPP}
+
+
+def _seeding_launches(metrics: dict, cfg) -> int:
+    """The seeding kernel's launches in an encode: palette_count - 1 for
+    each keyframe (every keyframe of these clips holds more than one
+    tile)."""
+    return metrics['n_keyframes'] * max(cfg.palette_count - 1, 0)
 
 
 def check_streaming(frames, cfg, card: str, batch: dict, tmp: str) -> dict:
@@ -1035,7 +1257,8 @@ def check_streaming(frames, cfg, card: str, batch: dict, tmp: str) -> dict:
         raise AssertionError(f'streaming buffered {m["max_buffered_frames"]} '
                              f'of {len(frames)} frames')
     if counts['nn1'] <= 0 or counts['nn1'] != sum(m['ft_nn_calls']) or \
-            counts['nn1_prepare'] != m['n_keyframes']:
+            counts['nn1_prepare'] != m['n_keyframes'] or \
+            counts['kmeans_pp'] != _seeding_launches(m, cfg):
         raise AssertionError(f'streaming: launches {counts} against stage-3 '
                              f'calls {m["ft_nn_calls"]} in '
                              f'{m["n_keyframes"]} GOPs')
@@ -1099,7 +1322,8 @@ def check_resume(frames, cfg, card: str, want: bytes, tmp: str) -> None:
     if blob != want:
         raise AssertionError('resumed stream != uninterrupted stream')
     if counts['nn1'] != enc.state.metrics['ft_nn_calls'] or \
-            counts['nn1_prepare'] != enc.state.metrics['n_keyframes']:
+            counts['nn1_prepare'] != enc.state.metrics['n_keyframes'] or \
+            counts['kmeans_pp'] != 0:
         raise AssertionError(f'resumed encode: launches {counts}')
 
 
@@ -1299,7 +1523,8 @@ def check_mesh(frames, cfg, card: str, batch: dict, want: bytes) -> dict:
         if got['nn1'] <= 0 or got['nn1'] != m['ft_nn_calls'] or \
                 got['nn1'] != sum(m['ft_nn_calls_shards']) or \
                 len(m['ft_nn_calls_shards']) != 4 or \
-                got['nn1_prepare'] != m['n_keyframes']:
+                got['nn1_prepare'] != m['n_keyframes'] or \
+                got['kmeans_pp'] != _seeding_launches(m, cfg):
             raise AssertionError(f'{name}: launches {got}, per shard '
                                  f'{m["ft_nn_calls_shards"]}')
         out[name] = dict(got, per_shard=m['ft_nn_calls_shards'])
@@ -1448,7 +1673,7 @@ def check_graft_entry(card: str) -> dict:
     idx, err = fn(*args)
     torch.cuda.synchronize()
     entry_counts = _counts()
-    if entry_counts != {'nn1': 1, 'nn1_prepare': 1}:
+    if entry_counts != {'nn1': 1, 'nn1_prepare': 1, 'kmeans_pp': 0}:
         raise AssertionError(f'entry: launches {entry_counts}')
     q = features.psyv_features_rgb(args[0], use_wavelets=True)
     pidx, perr = nk.nearest_1_plain(q, args[1])
@@ -1500,7 +1725,9 @@ def check_graft_entry(card: str) -> dict:
     shards = mst.metrics['ft_nn_calls_shards']
     for st, got in ((mst, mesh_counts), (ost, one_counts)):
         if got['nn1'] <= 0 or got['nn1'] != st.metrics['ft_nn_calls'] or \
-                got['nn1_prepare'] != st.metrics['n_keyframes']:
+                got['nn1_prepare'] != st.metrics['n_keyframes'] or \
+                got['kmeans_pp'] != _seeding_launches(st.metrics,
+                                                      st.config):
             raise AssertionError(f'dryrun: launches {got} for '
                                  f'{st.metrics["ft_nn_calls"]} calls, '
                                  f'{st.metrics["n_keyframes"]} keyframes')
@@ -1569,11 +1796,13 @@ def main() -> int:
 
     frames = synthetic_clip_v2(16, 1080, 1920)
     cfg = EncoderConfig(palette_count=128, tile_palette_size=16)
+    kpp = check_kmeans_pp(card, frames, cfg)
     _, untimed, warm_s = encode(frames, cfg, 'cuda')
     torch.cuda.reset_peak_memory_stats()
     enc, blob, counts = encode_counted(frames, cfg, 'slice', card,
                                        warm_s=warm_s)
     record['launches'], prep['launches'] = counts['nn1'], counts['nn1_prepare']
+    kpp['launches'] = counts['kmeans_pp']
     counts_batch = counts
     sha = hashlib.sha256(blob).hexdigest()
     say('slice_streams', gtm_bytes=len(blob), sha256=sha,
@@ -1605,15 +1834,18 @@ def main() -> int:
         counts = check_streaming(frames, cfg, card, batch, tmp)
         record['launches_streaming'] = counts['nn1']
         prep['launches_streaming'] = counts['nn1_prepare']
+        kpp['launches_streaming'] = counts['kmeans_pp']
         check_resume(frames, cfg, card, blob, tmp)
         check_cli(card, tmp)
         got = check_gop_exact(frames, cfg, card, batch, blob, counts_batch)
         record['launches_gop_exact_3hosts'] = got['nn1']
         prep['launches_gop_exact_3hosts'] = got['nn1_prepare']
+        kpp['launches_gop_exact_3hosts'] = got['kmeans_pp']
         for name, got in check_mesh(frames, cfg, card, batch, blob).items():
             record[f'launches_{name}'] = got['nn1']
             record[f'launches_{name}_per_shard'] = got['per_shard']
             prep[f'launches_{name}'] = got['nn1_prepare']
+            kpp[f'launches_{name}'] = got['kmeans_pp']
         check_cli_multi(card, tmp)
         with time_limit(600, 'measurement entry points'):
             full = check_bench(card, blob, tmp)
@@ -1627,6 +1859,8 @@ def main() -> int:
     record['launches_dryrun8'] = got['dryrun8']['nn1']
     record['launches_dryrun8_per_shard'] = got['dryrun8']['per_shard']
     prep['launches_dryrun8'] = got['dryrun8']['nn1_prepare']
+    kpp['launches_graft_entry'] = got['entry']['kmeans_pp']
+    kpp['launches_dryrun8'] = got['dryrun8']['kmeans_pp']
 
     cfg_yv = dataclasses.replace(cfg, use_thomas_knoll=False, use_dl3=False)
     _, blob, _ = encode_counted(frames, cfg_yv, 'slice_yliluoma_var', card)
@@ -1637,7 +1871,7 @@ def main() -> int:
         raise AssertionError(f'Yliluoma + VAR: {decoded.shape}, {p} dB')
 
     say('wall', card=card, seconds=time.perf_counter() - t_start)
-    print(json.dumps({'kernels': [record, prep] + variants}))
+    print(json.dumps({'kernels': [record, prep] + variants + [kpp]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

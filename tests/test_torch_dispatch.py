@@ -15,7 +15,7 @@ from tiler_tpu.utils import dispatch as jdispatch
 from tiler_tpu_torch import bench
 from tiler_tpu_torch.config import EncoderConfig
 from tiler_tpu_torch.constants import ENCODER_STEPS
-from tiler_tpu_torch.ops import nn_kernels
+from tiler_tpu_torch.ops import kmeans, nn_kernels
 from tiler_tpu_torch.pipeline.encoder import Encoder
 from tiler_tpu_torch.pipeline.stream import _encode_gop
 from tiler_tpu_torch.tools.common import synthetic_clip_v2
@@ -98,14 +98,41 @@ def test_kernel_reads_the_launch_counters(monkeypatch):
         dispatch.note('kernel')
 
 
+def test_kernel_counts_the_seeding_kernel(monkeypatch):
+    """The k-means++ seeding kernel's launches (one a draw) are in
+    `kernel` too."""
+    before = dispatch.snapshot()
+    launches = dispatch._launches()
+    monkeypatch.setattr(nn_kernels, 'LAUNCHES_KPP',
+                        nn_kernels.LAUNCHES_KPP + 381)
+    assert dispatch._launches() == launches + 381
+    d = dispatch.delta(before)
+    assert d['kernel'] == 381 and d['total'] == 0
+
+
 @pytest.fixture(scope='module')
 def two_encodes():
+    """Two encodes of the small clip; each encoder's `seedings` holds the
+    round trips of each of its k-means++ seedings."""
     frames = synthetic_clip_v2(8, 120, 160)
     out = []
+    real = kmeans._plus_plus_init
     for _ in range(2):
+        seedings = []
+
+        def counted(*a, **kw):
+            before = dispatch.snapshot()
+            cents = real(*a, **kw)
+            seedings.append(dispatch.delta(before))
+            return cents
         launches = (nn_kernels.LAUNCHES, nn_kernels.LAUNCHES_PREP)
         enc = Encoder(CFG, device='cpu')
-        blob = enc.run_all(frames, fps=24, fast_lzma=True)
+        kmeans._plus_plus_init = counted
+        try:
+            blob = enc.run_all(frames, fps=24, fast_lzma=True)
+        finally:
+            kmeans._plus_plus_init = real
+        enc.seedings = seedings
         out.append((enc, blob, (nn_kernels.LAUNCHES - launches[0],
                                 nn_kernels.LAUNCHES_PREP - launches[1])))
     return out
@@ -123,9 +150,11 @@ def test_every_step_has_its_round_trips(two_encodes):
         assert c['sync'] >= 1 and min(c.values()) >= 0, step
     assert d['load'] == dict(h2d=0, d2h=0, sync=1, kernel=0, total=1)
     assert (d['save']['h2d'], d['save']['d2h']) == (0, 1)
-    # the k-means++ seeding of every keyframe waits on each of its draws
+    # the k-means++ seeding of every keyframe uploads its keys once and
+    # waits on none of its draws
     n_kf = two_encodes[0][0].state.metrics['n_keyframes']
-    assert d['dither']['d2h'] > n_kf * (CFG.palette_count - 1)
+    assert two_encodes[0][0].seedings == [
+        dict(h2d=1, d2h=0, sync=0, kernel=0, total=1)] * n_kf
 
 
 def test_two_encodes_count_alike(two_encodes):

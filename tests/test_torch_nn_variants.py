@@ -200,6 +200,7 @@ def test_module_imports_build_nothing():
             'import tiler_tpu_torch.tools.nn_prec_bench, '
             'tiler_tpu_torch.tools.assign_opt_bench; '
             'assert nk._lib is None and nk._lib_bf16 is None; '
+            'assert nk._lib_kpp is None and nk.LAUNCHES_KPP == 0; '
             'assert nk.LAUNCHES == nk.LAUNCHES_AUG == nk.LAUNCHES_BF16 == 0; '
             'print(sorted(nk.SOURCES))')
     env = {'PATH': '/usr/bin:/bin'}
@@ -207,7 +208,7 @@ def test_module_imports_build_nothing():
     out = subprocess.run([sys.executable, '-c', code], capture_output=True,
                          text=True, env=env, cwd=repo, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "['nn1', 'nn1_bf16']"
+    assert out.stdout.strip() == "['kmeans_pp', 'nn1', 'nn1_bf16']"
 
 
 _FAKE_NVCC = '''#!/bin/sh
@@ -245,8 +246,9 @@ def test_build_compiles_each_source_or_raises(tmp_path, monkeypatch,
     if fail_on:
         with pytest.raises(RuntimeError, match='error in .*nn1_bf16.cu'):
             nk.build()
-        assert sorted(os.listdir(out_dir)) == ['libnn1.ptxas.txt',
-                                               'libnn1.so']
+        assert sorted(os.listdir(out_dir)) == [
+            'libkmeans_pp.ptxas.txt', 'libkmeans_pp.so', 'libnn1.ptxas.txt',
+            'libnn1.so']
         return
     libs = nk.build()
     assert libs == {n: str(out_dir / f'lib{n}.so') for n in nk.SOURCES}
@@ -256,11 +258,12 @@ def test_build_compiles_each_source_or_raises(tmp_path, monkeypatch,
     stamp = os.path.getmtime(libs['nn1'])
     assert nk.build() == libs and os.path.getmtime(libs['nn1']) == stamp
 
-    # the bf16 source includes hopper.cuh, K1's source includes no header
+    # the bf16 source includes hopper.cuh, K1's and the seeding's no header
     header = str(csrc / 'hopper.cuh')
     assert nk.source_files(sources['nn1_bf16']) == {sources['nn1_bf16'],
                                                     header}
     assert nk.source_files(sources['nn1']) == {sources['nn1']}
+    assert nk.source_files(sources['kmeans_pp']) == {sources['kmeans_pp']}
     now = os.path.getmtime(libs['nn1'])
     for path in list(sources.values()) + [header]:
         os.utime(path, (now - 200, now - 200))

@@ -8,6 +8,7 @@ import torch
 from tiler_tpu.ops import kmeans as jkmeans
 from tiler_tpu_torch.ops import kmeans as tkmeans
 from tiler_tpu_torch.ops import prng
+from tiler_tpu_torch.utils import dispatch
 
 SEED = 0x42381337
 
@@ -50,6 +51,75 @@ def test_uniform_and_categorical_match_jax(rng):
         tkk = _key(kk)
         assert prng.categorical(tkk, torch.from_numpy(logits)) == \
             int(jax.random.categorical(kk, logits))
+
+
+def _jax_schedule(seed, n, k):
+    """The JAX package's key chain of a seeding: k0, key = split(key),
+    first = randint(k0, (), 0, n), then key, kk = split(key) per draw."""
+    k0, key = jax.random.split(jax.random.PRNGKey(seed))
+    rows = [(int(jax.random.randint(k0, (), 0, n)), 0)]
+    for _ in range(1, k):
+        key, kk = jax.random.split(key)
+        rows.append(_key(kk))
+    return rows
+
+
+@pytest.mark.parametrize('seed,n,k', [
+    (SEED, 194400, 128), (SEED, 16384, 128), (0, 1, 2), (1, 1000, 16),
+    (2**31 - 1, 7, 1), (12345, 162000, 5)])
+def test_key_schedule_matches_jax(seed, n, k):
+    """The seeding's keys computed up front on the host: the first row
+    and every draw's key are jax.random's split chain and randint."""
+    got = tkmeans.key_schedule(prng.prng_key(seed), n, k)
+    assert got == _jax_schedule(seed, n, k)
+    assert all(type(v) is int for row in got for v in row)
+
+
+def test_plain_seeding_notes_one_upload(rng):
+    """The plain seeding, as the kernel's path, uploads the key schedule
+    once and waits on nothing: one h2d, no d2h or sync, no launch."""
+    x = torch.from_numpy(_features(rng, n=300))
+    x2 = torch.sum(x * x, dim=1)
+    before = dispatch.snapshot()
+    cents = tkmeans._plus_plus_init(x, x2, 16, prng.prng_key(SEED))
+    assert dispatch.delta(before) == dict(h2d=1, d2h=0, sync=0, kernel=0,
+                                          total=1)
+    assert cents.shape == (16, 192)
+
+
+def test_plus_plus_plain_draws_jax_rows(rng):
+    """plus_plus on CPU tensors is the plain version: its indices are
+    the rows of the JAX package's centroids, int64 as the kernel writes
+    them, its centroids those rows."""
+    x = _features(rng, n=500)
+    k = 12
+    want = np.asarray(jax.jit(jkmeans._plus_plus_init,
+                              static_argnames=('k',))(
+        x, k=k, key=jax.random.PRNGKey(SEED)))
+    xt = torch.from_numpy(x)
+    sched = torch.tensor(tkmeans.key_schedule(prng.prng_key(SEED), 500, k))
+    cents, idx = tkmeans.plus_plus(xt, torch.sum(xt * xt, dim=1), sched)
+    np.testing.assert_array_equal(cents.numpy(), want)
+    assert idx.dtype == torch.int64
+    np.testing.assert_array_equal(x[idx.numpy()], want)
+
+
+def test_plus_plus_checks_its_operands():
+    x = torch.zeros((10, 192))
+    x2 = torch.zeros(10)
+    sched = torch.zeros((4, 2), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        tkmeans.plus_plus(x, x2[:5], sched)
+    with pytest.raises(ValueError):
+        tkmeans.plus_plus(x, x2, sched[:, :1])
+    with pytest.raises(TypeError):
+        tkmeans.plus_plus(x.double(), x2, sched)
+    with pytest.raises(TypeError):
+        tkmeans.plus_plus(x, x2, sched.int())
+    with pytest.raises(ValueError):
+        tkmeans.plus_plus(x[:0], x2[:0], sched)
+    with pytest.raises(ValueError):
+        tkmeans.plus_plus(x.to('meta'), x2.to('meta'), sched.to('meta'))
 
 
 def _features(rng, n=600, d=192):

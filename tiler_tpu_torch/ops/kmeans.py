@@ -4,42 +4,127 @@ tiler_tpu/ops/kmeans.py.
 Distances are one [N,D]@[D,k] float32 matmul; the update is a one-hot
 [k,N]@[N,D+1] float32 matmul (per-cluster sums and counts together), not
 `index_add_`, whose CUDA atomics reorder float sums from run to run. The
-k-means++ draws come from ops.prng, bit-identical to jax.random. Each
-draw makes the host wait on the card three times: two scalar uploads
-(prng.uniform) and the drawn index's download (prng.categorical's int);
-each Lloyd iteration once, for its convergence test. kmeans_core opens
-the Dither step's spans 'dither/kmeans_pp' around the seeding and
-'dither/lloyd' around Lloyd's iterations (utils.dispatch.span).
+k-means++ draws come from ops.prng, bit-identical to jax.random. Their
+keys hang on the seed alone, so the host computes a seeding's keys and
+its first row up front (key_schedule) and uploads them once; on the card
+each of the k-1 draws is then one launch of csrc/kmeans_pp.cu (the D^2
+update, the gumbel scores and their first maximum in one pass), all
+enqueued without a wait, and the drawn rows stay on the card. The first
+wait is Lloyd's first convergence test, one per Lloyd iteration.
+kmeans_core opens the Dither step's spans 'dither/kmeans_pp' around the
+seeding (on the card: the upload and the enqueue) and 'dither/lloyd'
+around Lloyd's iterations (utils.dispatch.span).
 """
 from __future__ import annotations
 
 import torch
 
 from ..utils.dispatch import note, span
-from . import prng
+from . import nn_kernels, prng
 
 _SEED = 0x42381337   # the JAX package's k-means++ seed
 _MAX_ITERS = 100
 
 
+def key_schedule(key, n: int, k: int) -> list:
+    """The keys of a k-means++ seeding of k among n rows, which hang on
+    the key alone: [(first, 0), kk_1, ..., kk_{k-1}], the first row
+    (randint under split(key)[0]) and the key of each draw i (the second
+    half of the i-th split of what the first split left), as Python
+    ints."""
+    k0, key = prng.split(key)
+    rows = [(prng.randint(k0, 0, n), 0)]
+    for _ in range(1, k):
+        key, kk = prng.split(key)
+        rows.append(kk)
+    return rows
+
+
+def plus_plus_plain(x: torch.Tensor, x2: torch.Tensor, sched: torch.Tensor):
+    """The seeding's plain version: from the first row sched[0, 0], k-1
+    draws, each a categorical gumbel-max draw over log D^2 under key
+    sched[i], then D^2 updated with the drawn row. Every index stays a
+    tensor, so nothing waits. Returns (cents [k, D], idx [k] int64)."""
+    k = sched.shape[0]
+    idx = [sched[0, :1]]
+    c = x.index_select(0, idx[0])[0]
+    cents = [c]
+    d2 = torch.clamp(x2 + torch.sum(c ** 2) - 2.0 * (x @ c), min=0.0)
+    for i in range(1, k):
+        logits = torch.log(torch.clamp(d2, min=1e-30))
+        idx.append(prng.categorical((sched[i, 0], sched[i, 1]),
+                                    logits).view(1))
+        c = x.index_select(0, idx[-1])[0]
+        cents.append(c)
+        if i < k - 1:
+            nd2 = x2 + torch.sum(c * c) - 2.0 * (x @ c)
+            d2 = torch.minimum(d2, torch.clamp(nd2, min=0.0))
+    return torch.stack(cents), torch.cat(idx)
+
+
+def plus_plus(x: torch.Tensor, x2: torch.Tensor, sched: torch.Tensor):
+    """The seeding of len(sched) centroids among the rows x [N, D] f32
+    with norms x2 [N] under the key schedule sched [k, 2] int64 (the
+    rows of key_schedule, on x's device). CUDA tensors go through
+    csrc/kmeans_pp.cu (D = 192 alone), k-1 launches enqueued back to
+    back; CPU tensors through plus_plus_plain. Returns (cents [k, D] f32,
+    idx [k] int64)."""
+    if x.dim() != 2 or x2.shape != x.shape[:1] or sched.dim() != 2 \
+            or sched.shape[1] != 2 or len(sched) < 1:
+        raise ValueError(f'plus_plus takes x [N, D], x2 [N], sched [k, 2]; '
+                         f'got {tuple(x.shape)}, {tuple(x2.shape)}, '
+                         f'{tuple(sched.shape)}')
+    (n, dim), k = x.shape, len(sched)
+    if x.dtype != torch.float32 or x2.dtype != torch.float32 \
+            or sched.dtype != torch.int64:
+        raise TypeError('plus_plus takes float32 rows and norms and an '
+                        'int64 schedule')
+    if not (x.device == x2.device == sched.device):
+        raise ValueError(f'rows on {x.device}, norms on {x2.device}, '
+                         f'schedule on {sched.device}')
+    if n < 1:
+        raise ValueError('no rows')
+    if x.device.type == 'cpu':
+        return plus_plus_plain(x, x2, sched)
+    if x.device.type != 'cuda':
+        raise ValueError(f'plus_plus runs on cuda or cpu, not {x.device}')
+    if dim != nn_kernels.KPP_DIM:
+        raise ValueError(f'the seeding kernel takes rows of width '
+                         f'{nn_kernels.KPP_DIM}, not {dim}')
+    if not (x.is_contiguous() and x2.is_contiguous()
+            and sched.is_contiguous()):
+        raise ValueError('plus_plus takes contiguous tensors')
+    cents = torch.empty((k, dim), dtype=torch.float32, device=x.device)
+    idx = torch.empty(k, dtype=torch.int64, device=x.device)
+    if k == 1:
+        # no draw: the first row alone
+        torch.index_select(x, 0, sched[0, :1], out=cents)
+        idx.copy_(sched[0, :1])
+        return cents, idx
+    lib = nn_kernels.load_kmeans_pp()
+    d2 = torch.empty(n, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(lib.tiler_kmeans_pp_scratch(n), dtype=torch.int32,
+                          device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.tiler_kmeans_pp(x.data_ptr(), x2.data_ptr(),
+                                 sched.data_ptr(), n, k, d2.data_ptr(),
+                                 idx.data_ptr(), cents.data_ptr(),
+                                 scratch.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f'kmeans_pp kernel launch failed: cudaError {rc}')
+    nn_kernels._count('LAUNCHES_KPP', k - 1)
+    return cents, idx
+
+
 def _plus_plus_init(x: torch.Tensor, x2: torch.Tensor, k: int, key):
     """k-means++ seeding: first point uniform, then D^2-weighted sampling
-    (a categorical gumbel-max draw over log D^2)."""
-    n = x.shape[0]
-    k0, key = prng.split(key, device=x.device)
-    first = prng.randint(k0, 0, n, device=x.device)
-    cents = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
-    cents[0] = x[first]
-    d2 = x2 + torch.sum(x[first] ** 2) - 2.0 * (x @ x[first])
-    d2 = torch.clamp(d2, min=0.0)
-    for i in range(1, k):
-        key, kk = prng.split(key, device=x.device)
-        logits = torch.log(torch.clamp(d2, min=1e-30))
-        c = x[prng.categorical(kk, logits)]
-        cents[i] = c
-        nd2 = x2 + torch.sum(c * c) - 2.0 * (x @ c)
-        d2 = torch.minimum(d2, torch.clamp(nd2, min=0.0))
-    return cents
+    (a categorical gumbel-max draw over log D^2). The key schedule goes up
+    to x's device in one upload; nothing comes back."""
+    sched = key_schedule(key, x.shape[0], k)
+    note('h2d')
+    sched = torch.tensor(sched, dtype=torch.int64, device=x.device)
+    return plus_plus(x, x2, sched)[0]
 
 
 def _assign(x: torch.Tensor, x2: torch.Tensor, cents: torch.Tensor):

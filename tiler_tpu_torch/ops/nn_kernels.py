@@ -17,15 +17,20 @@ version.
   source) into the swizzled bf16 tiles the walk copies into shared
   memory; `nearest_1_bf16(q, c)` on raw rows prepares inside.
 
+The library of csrc/kmeans_pp.cu, Dither's k-means++ seeding (one launch
+per draw), is built and loaded here with the others; its wrapper and plain
+version are ops.kmeans.plus_plus and plus_plus_plain.
+
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never routes a CUDA tensor to the plain
 version. The libraries are built with nvcc for sm_90a at first use, from
 the sources in this package, into build/tiler_tpu_torch/ at the
 repository root (one nvcc per source, started together), and loaded with
-ctypes. `LAUNCHES`, `LAUNCHES_PREP`, `LAUNCHES_AUG`, `LAUNCHES_BF16` and
-`LAUNCHES_BF16_PREP` count each kernel's launches (and nothing else), so
-a run can show that its path went through the kernels; host threads that
-share a card (parallel.gop_exact) update them under a lock.
+ctypes. `LAUNCHES`, `LAUNCHES_PREP`, `LAUNCHES_AUG`, `LAUNCHES_BF16`,
+`LAUNCHES_BF16_PREP` and `LAUNCHES_KPP` count each kernel's launches (and
+nothing else), so a run can show that its path went through the kernels;
+host threads that share a card (parallel.gop_exact) update them under a
+lock.
 """
 from __future__ import annotations
 
@@ -46,12 +51,14 @@ LAUNCHES_PREP = 0
 LAUNCHES_AUG = 0
 LAUNCHES_BF16 = 0
 LAUNCHES_BF16_PREP = 0
+LAUNCHES_KPP = 0
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'tiler_tpu_torch')
 # library name -> its CUDA source
 SOURCES = {'nn1': os.path.join(_PKG, 'csrc', 'nn1.cu'),
-           'nn1_bf16': os.path.join(_PKG, 'csrc', 'nn1_bf16.cu')}
+           'nn1_bf16': os.path.join(_PKG, 'csrc', 'nn1_bf16.cu'),
+           'kmeans_pp': os.path.join(_PKG, 'csrc', 'kmeans_pp.cu')}
 # csrc/nn1.cu's tiles: queries per block, candidates per tile (prepared
 # candidates are padded to it) and the granule the feature width is padded
 # to; checked against the library when it is loaded
@@ -70,6 +77,9 @@ _lock = threading.Lock()
 _count_lock = threading.Lock()   # the LAUNCHES* updates
 _lib = None       # libnn1.so: K1, its augmented mode and the prepare
 _lib_bf16 = None  # libnn1_bf16.so
+_lib_kpp = None   # libkmeans_pp.so
+# csrc/kmeans_pp.cu takes rows of this width alone
+KPP_DIM = 192
 
 
 def _nvcc() -> str:
@@ -202,6 +212,32 @@ def _load_bf16():
         if _lib_bf16 is None:
             _lib_bf16 = bind_nn1_bf16(build()['nn1_bf16'])
     return _lib_bf16
+
+
+def bind_kmeans_pp(path: str):
+    """Load a library built from csrc/kmeans_pp.cu and declare its
+    functions; its feature width must be KPP_DIM."""
+    lib = ctypes.CDLL(path)
+    lib.tiler_kmeans_pp.restype = _I
+    # x, x2, sched, n, k, d2, idx, cents, scratch, stream
+    lib.tiler_kmeans_pp.argtypes = [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P]
+    lib.tiler_kmeans_pp_scratch.restype = _I
+    lib.tiler_kmeans_pp_scratch.argtypes = [_I]
+    lib.tiler_kmeans_pp_dim.restype = _I
+    lib.tiler_kmeans_pp_dim.argtypes = []
+    if lib.tiler_kmeans_pp_dim() != KPP_DIM:
+        raise RuntimeError(f'{path}: width {lib.tiler_kmeans_pp_dim()} != '
+                           f'{KPP_DIM}')
+    return lib
+
+
+def load_kmeans_pp():
+    """libkmeans_pp.so, built at first use."""
+    global _lib_kpp
+    with _lock:
+        if _lib_kpp is None:
+            _lib_kpp = bind_kmeans_pp(build()['kmeans_pp'])
+    return _lib_kpp
 
 
 def _count(name: str, n: int) -> None:

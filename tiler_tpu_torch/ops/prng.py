@@ -7,9 +7,13 @@ palettes be compared with the JAX package's at all.
 
 The variant is the one JAX uses with `jax_threefry_partitionable=True`
 (the default since jax 0.5): `split` and `random_bits` hash a 64-bit
-iota split into (hi, lo) 32-bit counter halves with the key. Values are
-int64 tensors masked to 32 bits, because torch's uint32 coverage is
-partial; a key is a python pair of 0-d int64 tensors or ints.
+iota split into (hi, lo) 32-bit counter halves with the key. A key is a
+pair of Python ints, or of 0-d int64 tensors on the device that draws
+with it. `split` and `randint` hang on the key alone and run on the host
+in Python ints (ops.kmeans computes a seeding's keys up front with them);
+`random_bits32`, `uniform`, `gumbel` and `categorical` draw over n
+elements on a device, as int64 tensors masked to 32 bits, because
+torch's uint32 coverage is partial.
 """
 from __future__ import annotations
 
@@ -29,10 +33,10 @@ def _rotl(x, r: int):
 
 def threefry2x32(k1, k2, x1, x2):
     """The Threefry-2x32 hash (20 rounds) of counter pairs (x1, x2) under
-    key (k1, k2). Every argument is an int64 tensor (or int) holding
-    uint32 values; returns two int64 tensors of x1's shape."""
-    k1 = torch.as_tensor(k1, dtype=torch.int64) & _M32
-    k2 = torch.as_tensor(k2, dtype=torch.int64) & _M32
+    key (k1, k2). Every argument is a Python int or an int64 tensor
+    holding uint32 values; returns two of x1's kind (tensors of its shape
+    where any argument is a tensor)."""
+    k1, k2 = k1 & _M32, k2 & _M32
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     a = (x1 + ks[0]) & _M32
     b = (x2 + ks[1]) & _M32
@@ -51,37 +55,31 @@ def prng_key(seed: int):
 
 
 def _key_tensors(key, device):
-    # a key of Python ints goes up to the device; a split's key is there
+    # a key of Python ints goes up to the device; a key already there stays
     note('h2d', sum(not isinstance(k, torch.Tensor) for k in key))
     return (torch.as_tensor(key[0], dtype=torch.int64, device=device),
             torch.as_tensor(key[1], dtype=torch.int64, device=device))
 
 
-def split(key, num: int = 2, device=None):
-    """jax.random.split(key, num) -> list of num keys."""
-    k1, k2 = _key_tensors(key, device)
-    hi = torch.zeros(num, dtype=torch.int64, device=device)
-    lo = torch.arange(num, dtype=torch.int64, device=device)
-    b1, b2 = threefry2x32(k1, k2, hi, lo)
-    return [(b1[i], b2[i]) for i in range(num)]
+def split(key, num: int = 2):
+    """jax.random.split(key, num) -> list of num keys, on the host."""
+    k1, k2 = int(key[0]), int(key[1])
+    return [threefry2x32(k1, k2, 0, i) for i in range(num)]
 
 
-def random_bits32(key, n: int | None, device=None):
-    """32 random bits per element; n=None draws one scalar (shape ())."""
+def random_bits32(key, n: int, device=None):
+    """jax.random.bits(key, (n,), uint32): 32 random bits per element."""
     k1, k2 = _key_tensors(key, device)
-    m = 1 if n is None else n
-    lo = torch.arange(m, dtype=torch.int64, device=device)
+    lo = torch.arange(n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    bits = b1 ^ b2
-    return bits[0] if n is None else bits
+    return b1 ^ b2
 
 
-def randint(key, minval: int, maxval: int, device=None) -> int:
-    """jax.random.randint(key, (), minval, maxval) for int32 output."""
-    k1, k2 = split(key, device=device)
-    note('d2h', 2)
-    hi = int(random_bits32(k1, None, device))
-    lo = int(random_bits32(k2, None, device))
+def randint(key, minval: int, maxval: int) -> int:
+    """jax.random.randint(key, (), minval, maxval) for int32 output, on
+    the host."""
+    hi, lo = [b1 ^ b2 for b1, b2 in
+              (threefry2x32(k1, k2, 0, 0) for k1, k2 in split(key))]
     span = maxval - minval if maxval > minval else 1
     mult = (1 << 16) % span
     mult = ((mult * mult) & _M32) % span
@@ -90,14 +88,15 @@ def randint(key, minval: int, maxval: int, device=None) -> int:
 
 
 def uniform(key, n: int, minval: float, maxval: float, device=None):
-    """jax.random.uniform(key, (n,), float32, minval, maxval)."""
+    """jax.random.uniform(key, (n,), float32, minval, maxval). The bounds
+    are float32 scalars (their difference taken in float32, as jax does),
+    which torch applies in float32 without an upload."""
     bits = random_bits32(key, n, device)
     fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fb.view(torch.float32) - 1.0
-    note('h2d', 2)
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    lo = np.float32(minval)
+    scale = np.float32(maxval) - lo
+    return torch.clamp(floats * float(scale) + float(lo), min=float(lo))
 
 
 def gumbel(key, n: int, device=None):
@@ -108,7 +107,8 @@ def gumbel(key, n: int, device=None):
 
 def categorical(key, logits):
     """jax.random.categorical over a 1-D logits vector: the gumbel-max
-    trick, first maximum on ties (torch.argmax's documented rule)."""
+    trick, first maximum on ties (torch.argmax's documented rule). Returns
+    the drawn index as a 0-d int64 tensor on the logits' device, without
+    a wait."""
     g = gumbel(key, logits.shape[0], logits.device)
-    note('d2h')
-    return int(torch.argmax(g + logits))
+    return torch.argmax(g + logits)

@@ -71,7 +71,7 @@ _span_s: dict = {}
 def _launches() -> int:
     from ..ops import nn_kernels as nk
     return (nk.LAUNCHES + nk.LAUNCHES_PREP + nk.LAUNCHES_AUG
-            + nk.LAUNCHES_BF16 + nk.LAUNCHES_BF16_PREP)
+            + nk.LAUNCHES_BF16 + nk.LAUNCHES_BF16_PREP + nk.LAUNCHES_KPP)
 
 
 def note(kind: str, n: int = 1) -> None:

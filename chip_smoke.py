@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch port on one CUDA card: python3 chip_smoke.py
 
-It imports torch, numpy and tiler_tpu_torch only. Phases (each prints one
-JSON line; any failure raises and exits non-zero):
+It imports torch, numpy, tiler_tpu_torch and, for phase 4k, the
+benchmark's clip generator, probes and plain references (gtmbench).
+Phases (each prints one JSON line; any failure raises and exits
+non-zero):
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. build: the CUDA sources (tiler_tpu_torch/csrc/nn1.cu with K1, its
      augmented mode K2 and the prepare kernel, nn1_bf16.cu with K3 and
@@ -94,6 +96,16 @@ JSON line; any failure raises and exits non-zero):
         noting one upload and no wait; a draw timed beside its bound, the
         plain version and a GEMV over the same rows; the kernel's record
         joins the kernels' line, with its launches on every driven path;
+     k. FT quality SLOW at full size: the benchmark cell
+        ft_slow.cuts1080's clip (16 x 1080 x 1920) encoded with
+        gtm_ft_slow through run_all; every keyframe's FrameTiling marks
+        and candidate list equal to gtmbench/reference/frame_tiling.py's
+        exactly and holding its MEDIUM marks, K1's winners for every
+        changed cell of keyframe 0 within 3e-5 of the float64 best
+        (gtmbench/reference/nn.py), the stream decoding to the clip;
+        then two planted faults (SLOW marked as MEDIUM, the 8-NN's
+        consecutive-equal skip dropped), each of which must fail that
+        comparison;
   5. decode: both 1080p streams through the package's numpy decoder,
      each with PSNR >= 29 dB.
 Then the script's total wall. The last three lines are the kernels'
@@ -1755,6 +1767,101 @@ def check_graft_entry(card: str) -> dict:
             'dryrun8': dict(mesh_counts, per_shard=shards)}
 
 
+# phase k: the stage-3 gap of K1's winners over the float64 best, as the
+# benchmark's k1_gap limit (gtmbench/limits/ft_slow.cuts1080.json)
+FT_SLOW_K1_GAP = 3e-5
+FT_SLOW_FAULTS = ('slow_as_medium', 'no_equal_skip')
+
+
+def _ft_slow_encode(cell, cfg, frames, fault=None, capture=False):
+    """One run_all of the cell's clip on the card under gtmbench's
+    MarkProbe (and probe.Capture for K1): (stream, keyframe records,
+    Capture or None, encoder)."""
+    from gtmbench import ft_probe
+    from gtmbench.probe import Capture
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    probe = ft_probe.MarkProbe()
+    cap = Capture() if capture else None
+    with contextlib.ExitStack() as stack:
+        if fault is not None:
+            stack.enter_context(ft_probe.plant(fault))
+        stack.enter_context(probe)
+        if cap is not None:
+            cap.install()
+            stack.callback(cap.uninstall)
+        enc = Encoder(cfg, device='cuda')
+        blob = enc.run_all(frames, fps=cell.traffic['fps'],
+                           **cell.config['save'])
+    records = ft_probe.compare(probe, cfg, 'cuda')
+    del probe
+    return blob, records, cap, enc
+
+
+def check_ft_slow(card: str) -> dict:
+    """Phase k: the benchmark cell ft_slow.cuts1080's clip encoded with
+    gtm_ft_slow through run_all on the card. Every keyframe's marks and
+    candidate list equal to the plain reference's
+    (gtmbench/reference/frame_tiling.py), SLOW's marks holding the
+    reference's MEDIUM ones, K1's winners for every changed cell of
+    keyframe 0 within FT_SLOW_K1_GAP of the float64 best
+    (gtmbench/reference/nn.py, in blocks), the stream decoding to the
+    clip's shape; then each planted fault of gtmbench.ft_probe (SLOW
+    marked as MEDIUM, UseOne's consecutive-equal skip dropped) must fail
+    the comparison at its first keyframe."""
+    import torch
+    from gtmbench import cells, ft_probe
+    from gtmbench.reference import gtm
+    from gtmbench.reference import nn as ref_nn
+    from gtmbench.traffic import generators
+    from tiler_tpu_torch.config import EncoderConfig
+    cell = cells.load('ft_slow.cuts1080')
+    cfg = cells.encoder_config(EncoderConfig, cell.config['encoder'])
+    frames = generators.make(cell.traffic)
+    t0 = time.perf_counter()
+    blob, records, cap, enc = _ft_slow_encode(cell, cfg, frames,
+                                              capture=True)
+    wall = time.perf_counter() - t0
+    sizes = enc.state.metrics['ft_knn_sizes']
+    t = time.perf_counter()
+    kf = cap.k1[0]
+    gap, moved, n_q = ref_nn.gap(torch.cat(kf['queries']), kf['cands'],
+                                 torch.cat(kf['winners']))
+    gap_s = time.perf_counter() - t
+    decoded = gtm.decode(blob)
+    out = {'card': card, 'wall_s': wall, 'keyframes': records,
+           'ft_knn_sizes': sizes,
+           'ft_feat_rows': enc.state.metrics['ft_feat_rows'],
+           'ft_pair_dedup': enc.state.metrics['ft_pair_dedup'],
+           'ft_phases': enc.state.metrics['ft_phases'],
+           'k1_gap': gap, 'k1_moved': moved, 'k1_queries': n_q,
+           'k1_candidates': len(kf['cands']), 'k1_gap_s': gap_s,
+           'gtm_bytes': len(blob), 'psnr': gtm.psnr(decoded, frames)}
+    del cap, enc, kf
+    torch.cuda.empty_cache()
+    say('ft_slow', **out)
+    if not ft_probe.passes(records):
+        raise AssertionError(f'ft_slow: marks or candidates differ from the '
+                             f'reference: {records}')
+    if [r['candidates'] for r in records] != sizes:
+        raise AssertionError(f'ft_slow: candidate lists {records} are not '
+                             f"stage 3's {sizes}")
+    if not gap <= FT_SLOW_K1_GAP:
+        raise AssertionError(f'ft_slow: K1 gap {gap} > {FT_SLOW_K1_GAP}')
+    if decoded.shape != frames.shape:
+        raise AssertionError(f'ft_slow: decoded {decoded.shape}')
+    faults = {}
+    for fault in FT_SLOW_FAULTS:
+        stop = dataclasses.replace(cfg, end_step='frame_tiling')
+        _, got, _, _ = _ft_slow_encode(cell, stop, frames, fault=fault)
+        faults[fault] = got
+        say('ft_slow_fault', fault=fault, keyframes=got)
+        if ft_probe.passes(got) or got[0]['marks_equal']:
+            raise AssertionError(f'ft_slow: the planted fault {fault} '
+                                 f'passed at keyframe 0: {got}')
+    out['faults'] = faults
+    return out
+
+
 def encode(frames, cfg, device, fast_lzma: bool = True):
     from tiler_tpu_torch.pipeline.encoder import Encoder
     enc = Encoder(cfg, device=device)
@@ -1869,6 +1976,8 @@ def main() -> int:
     say('decode_yliluoma_var', psnr=p)
     if decoded.shape != frames.shape or not p >= PSNR_FLOOR:
         raise AssertionError(f'Yliluoma + VAR: {decoded.shape}, {p} dB')
+
+    check_ft_slow(card)
 
     say('wall', card=card, seconds=time.perf_counter() - t_start)
     print(json.dumps({'kernels': [record, prep] + variants + [kpp]}))

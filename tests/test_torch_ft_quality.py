@@ -119,6 +119,9 @@ def test_candidate_features_mirror_dedup_matches_direct(rng, monkeypatch):
     f_fast, p_f, t_f, a_f = ft.candidate_features(state, 0, used, tile_of,
                                                   attrs_of)
     assert state.metrics['ft_pair_dedup'][0] >= 2.0     # the dedup path ran
+    # features computed once per (palette, tile) pair, mirrors permuted
+    n_pairs = len(np.unique((p_f.astype(np.int64) << 32) | t_f))
+    assert state.metrics['ft_feat_rows'] == [n_pairs]
     monkeypatch.setattr(features, 'mirror_coeff_perms', lambda w: None)
     f_dir, p_d, t_d, a_d = ft.candidate_features(state, 0, used, tile_of,
                                                  attrs_of)

@@ -433,16 +433,17 @@ def test_ft_row_budget_grouping_byte_identical(dryrun, monkeypatch):
 # the port's phase spans that the JAX package does not clock
 PORT_PHASES = {'dither_phases': {'features', 'kmeans_pp', 'lloyd',
                                  'mirrors'},
-               'ft_phases': {'prepare', 'search'}}
+               'ft_phases': {'prepare', 'search', 'cand_set'}}
 
 
 def test_metric_keys_are_the_jax_packages(dryrun):
     """run_all's metric keys (and those of the phase dicts and of the
     per-step round trips) are tiler_tpu's, but for its upload counter, and
-    the port's count of stage-3 kernel calls, Save's phases and the
-    phases it clocks inside Dither and FrameTiling."""
+    the port's counts of stage-3 kernel calls and of stage-2 feature
+    rows, Save's phases and the phases it clocks inside Dither and
+    FrameTiling."""
     mine, theirs = dryrun['enc'].state.metrics, dryrun['jmetrics']
-    assert set(mine) - {'ft_nn_calls', 'save_phases'} == \
+    assert set(mine) - {'ft_nn_calls', 'ft_feat_rows', 'save_phases'} == \
         set(theirs) - {'upload_changed_frac'}
     for key in ('mu_phases', 'gt_phases', 'mesh_sharded_wall',
                 'dither_phases', 'ft_phases', 'dispatches'):

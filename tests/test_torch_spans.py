@@ -33,7 +33,7 @@ PHASES = {
                                     'unique_reindex'), ()),
     'ft_phases': ('frame_tiling', ('dataset', 'upload', 'mark',
                                    'cand_feats', 'assign'),
-                  ('prepare', 'search')),
+                  ('prepare', 'search', 'cand_set')),
     'save_phases': ('save', (), ('pack', 'lzma')),
 }
 LABELS = [f'{step}/{k}' for step, old, new in PHASES.values()
@@ -45,6 +45,7 @@ NESTED = [
     ('dither/prepare_kmeans', ('dither/features', 'dither/kmeans_pp',
                                'dither/lloyd')),
     ('frame_tiling/assign', ('frame_tiling/prepare', 'frame_tiling/search')),
+    ('frame_tiling/cand_feats', ('frame_tiling/cand_set',)),
     ('global_tiling/unique_reindex', ('global_tiling/gt_unique',
                                       'global_tiling/gt_reindex')),
     ('save/pack', ()),
@@ -126,6 +127,33 @@ def test_nested_spans_fit_inside(encodes, outer, inner):
     d = encodes['delta']
     assert d[outer] > 0
     assert d[outer] + 1e-9 >= sum(d[k] for k in inner)
+
+
+def test_cand_set_lies_inside_cand_feats(encodes):
+    """Stage 2's host set logic is clocked inside stage 2, on the
+    profiler's clock too, and is no longer than it."""
+    ann = encodes['ann']
+    outer = [e for e in ann if e['name'] == 'frame_tiling/cand_feats']
+    inner = [e for e in ann if e['name'] == 'frame_tiling/cand_set']
+    assert len(outer) == len(encodes['state'].keyframes)
+    assert len(inner) >= len(outer)
+    for e in inner:
+        assert any(o['ts'] <= e['ts'] and e['ts'] + e['dur'] <= o['ts']
+                   + o['dur'] for o in outer), e
+    got = encodes['state'].metrics['ft_phases']
+    assert 0.0 < encodes['delta']['frame_tiling/cand_set'] \
+        <= encodes['delta']['frame_tiling/cand_feats']
+    assert got['cand_set'] <= got['cand_feats']
+
+
+def test_feature_rows_are_the_candidates_on_the_direct_path(encodes):
+    """metrics['ft_feat_rows']: per keyframe the rows whose features
+    stage 2 computed, every candidate where the pair dedup is under 2 and
+    the features are computed directly."""
+    m = encodes['state'].metrics
+    assert len(m['ft_knn_sizes']) == len(encodes['state'].keyframes)
+    assert all(d < 2.0 for d in m['ft_pair_dedup'][-len(m['ft_knn_sizes']):])
+    assert m['ft_feat_rows'] == m['ft_knn_sizes']
 
 
 def test_step_times_are_the_step_spans(encodes):

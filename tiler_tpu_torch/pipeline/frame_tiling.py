@@ -135,12 +135,15 @@ def _chunk_feats(tiles, pal, hm, vm, tiles_pal_d, pals_d, cfg):
 def candidate_features(state: EncoderState, k: int, used, tile_of,
                        attrs_of):
     """Stage 2 for keyframe k: returns (feats [C,192] device, pal_idx [C],
-    tile_idx [C], attrs [C]) in np.nonzero(used) order.
+    tile_idx [C], attrs [C]) in np.nonzero(used) order, and appends the
+    rows whose features it computed to metrics['ft_feat_rows'].
 
     The mirror-permutation path runs when the keyframe's (palette, tile)
     pair dedup at least halves the base feature work (the JAX package's
     gate); its features differ from the direct path's only in f32 low
-    bits."""
+    bits. The host's set logic (the marks' nonzero, the pair dedup and the
+    gathers, before any upload) is clocked apart from the features as the
+    span 'frame_tiling/cand_set'."""
     cfg = state.config
     n_tiles = int(state.n_tiles)
     dev = state.device
@@ -153,15 +156,17 @@ def candidate_features(state: EncoderState, k: int, used, tile_of,
         return map_rows(state.mesh, _chunk_feats, rows, tiles_pal_d, pals_d,
                         cfg)
     pp = features.mirror_coeff_perms(cfg.use_wavelets)
-    pal_idx, dentry = np.nonzero(used)
-    pal_idx = pal_idx.astype(np.int64)
-    tiles = tile_of[dentry]
-    attrs = attrs_of[dentry]
-    uq, inv = np.unique(pal_idx * n_tiles + tiles, return_inverse=True)
+    with span('frame_tiling/cand_set'):
+        pal_idx, dentry = np.nonzero(used)
+        pal_idx = pal_idx.astype(np.int64)
+        tiles = tile_of[dentry]
+        attrs = attrs_of[dentry]
+        uq, inv = np.unique(pal_idx * n_tiles + tiles, return_inverse=True)
     c = len(pal_idx)
     state.metrics.setdefault('ft_pair_dedup', []).append(
         round(c / max(len(uq), 1), 3))
     if pp is not None and len(uq) <= 0.5 * c:
+        state.metrics.setdefault('ft_feat_rows', []).append(len(uq))
         zeros = np.zeros(len(uq), bool)
         base = chunk_feats(uq % n_tiles, uq // n_tiles, zeros, zeros)
         note('h2d', 3)
@@ -178,6 +183,7 @@ def candidate_features(state: EncoderState, k: int, used, tile_of,
                     * sign4[a][None, :]
         del base
     else:
+        state.metrics.setdefault('ft_feat_rows', []).append(c)
         feats = chunk_feats(tiles, pal_idx, (attrs & 1).astype(bool),
                             (attrs & 2).astype(bool))
     return (feats, pal_idx.astype(np.int32), tiles.astype(np.int32),
@@ -236,16 +242,20 @@ def _assign_keyframe(state: EncoderState, k: int, cands, ch_all, src_all):
     return run_idx[fill], run_err[fill], len(changed), calls
 
 
-FT_PHASES = ('dataset', 'upload', 'mark', 'cand_feats', 'assign', 'prepare',
-             'search')
+FT_PHASES = ('dataset', 'upload', 'mark', 'cand_feats', 'cand_set', 'assign',
+             'prepare', 'search')
 
 
 def run_frame_tiling(state: EncoderState) -> EncoderState:
     """metrics['ft_phases'] holds the host seconds of the spans
     'frame_tiling/<key>' (utils.dispatch.span): 'dataset', 'upload' and
     'mark' (stage 1) once, 'cand_feats' (stage 2) and 'assign' (stage 3)
-    summed over keyframes; 'assign' holds each keyframe's 'prepare' (the
-    candidates prepared for the kernel) and 'search' (_assign_keyframe)."""
+    summed over keyframes; 'cand_feats' holds the host's set logic
+    'cand_set' (candidate_features), 'assign' each keyframe's 'prepare'
+    (the candidates prepared for the kernel) and 'search'
+    (_assign_keyframe). metrics['ft_knn_sizes'] and ['ft_feat_rows'] give
+    per keyframe the candidates and the rows whose features stage 2
+    computed."""
     cfg = state.config
     dev = state.device
     n_kf = len(state.keyframes)
@@ -287,6 +297,7 @@ def run_frame_tiling(state: EncoderState) -> EncoderState:
 
     # ---- stages 2+3, one keyframe at a time ----
     knn_sizes = []
+    state.metrics['ft_feat_rows'] = []
     nn_calls = np.zeros(mesh.size, np.int64)
     q_total = q_changed = 0
     residual = 0.0

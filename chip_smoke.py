@@ -59,11 +59,7 @@ non-zero):
         encode's; then the CLI on the small clip: --distributed in two child processes on the card
         (gloo on a free localhost port) writes the one-device CLI's
         bytes, and --devices 2 exits naming the one device there is;
-     g. the measurement entry points, under a time limit of their own:
-        python -m tiler_tpu_torch.bench as a child at the 320x240 size
-        with 3 timed runs, its CPU baseline child and its continuity
-        entry (the metric's name, 3 runs, a measured vs_baseline, one
-        stream over the runs, K1 launched once per stage-3 call), and
+     g. the decode benchmark, under a time limit of its own:
         tiler_tpu_torch.tools.decode_bench on decoders/web/sample.gtm and
         on the 1080p slice stream on the card;
      h. the compile-check entry points (tiler_tpu_torch.graft_entry), under a
@@ -145,9 +141,6 @@ Q_SHORT = (2000, 9000, 12000)   # a keyframe's last, short query chunk
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 PSNR_FLOOR = 29.0
 AGREE_FLOOR = 0.998   # K1/K2 winner agreement: at most 1 in 512 apart
-# the source tiles of the bench's TILER_BENCH_SMALL clip (16 x 240 x 320
-# RGB bytes), which every encode holds on the card until it is released
-BENCH_SMALL_CLIP_BYTES = 16 * 240 * 320 * 3
 
 
 def say(phase: str, **kv) -> None:
@@ -1607,38 +1600,12 @@ def check_cli_multi(card: str, tmp: str) -> None:
                              f'{two.stderr[-500:]}')
 
 
-def check_bench(card: str, slice_blob: bytes, tmp: str) -> dict:
-    """Phase g, the measurement entry points on the card: python -m
-    tiler_tpu_torch.bench as a child at the 320x240 size with 3 timed runs,
-    its CPU baseline and its continuity entry on, must name its metric
-    encode_fps_320x240_cuda, list 3 runs, measure vs_baseline, write one
-    stream in every run, reach peaks of device memory that differ by less
-    than one copy of the clip's source tiles (which a run holding an
-    earlier run's encoder would add; the caching allocator's block
-    slack may move a peak by less), launch K1 once per stage-3 call
-    in each and print its round trips (n_dispatches the sum of the
-    steps' totals; the bench itself raises when a timed run's differ
-    from the first's); then
-    tools.decode_bench on the web sample and on the 1080p slice stream on
-    the card (each renderer's frames equal to the numpy decoder's).
-    Returns the bench's full line."""
+def check_decode_bench(card: str, slice_blob: bytes, tmp: str) -> None:
+    """Phase g, the decode benchmark on the card: tools.decode_bench on
+    the web sample and on the 1080p slice stream (each renderer's frames
+    equal to the numpy decoder's)."""
     from tiler_tpu_torch.tools import decode_bench
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=root, TILER_BENCH_SMALL='1',
-               TILER_BENCH_RUNS='3')
-    for name in ('TILER_BENCH_CPU', 'TILER_BENCH_NO_CPU',
-                 'TILER_BENCH_NO_CONT', 'TILER_BENCH_DEVICES'):
-        env.pop(name, None)
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, '-m', 'tiler_tpu_torch.bench'],
-                         capture_output=True, text=True, cwd=root, env=env,
-                         timeout=480)
-    bench_s = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise AssertionError(f'bench: exit {out.returncode}, '
-                             f'{out.stderr[-2000:]}')
-    full, head = [json.loads(ln) for ln in
-                  out.stdout.strip().splitlines()[-2:]]
     path = os.path.join(tmp, 'slice.gtm')
     with open(path, 'wb') as fh:
         fh.write(slice_blob)
@@ -1646,25 +1613,13 @@ def check_bench(card: str, slice_blob: bytes, tmp: str) -> dict:
     t0 = time.perf_counter()
     decoded = {name: decode_bench.main([p, '--device', 'cuda'])
                for name, p in (('sample', root_sample), ('slice', path))}
-    say('bench', card=card, bench_s=bench_s,
-        decode_bench_s=time.perf_counter() - t0, headline=head, full=full,
+    say('decode_bench', card=card, decode_bench_s=time.perf_counter() - t0,
         decode_bench=decoded)
-    ok = (head['metric'] == full['metric'] == 'encode_fps_320x240_cuda'
-          and len(head['runs_fps']) == len(full['sha256']) == 3
-          and isinstance(head['vs_baseline'], float)
-          and len(set(full['sha256'])) == 1
-          and max(full['peak_bytes']) - min(full['peak_bytes'])
-          < BENCH_SMALL_CLIP_BYTES
-          and full['k1_launches'] == [full['ft_nn_calls']] * 3
-          and full['n_dispatches'] == sum(
-              c['total'] for c in full['dispatches'].values()) > 0
-          and full['continuity'] is not None
-          and decoded['sample']['frames'] == 48
+    ok = (decoded['sample']['frames'] == 48
           and decoded['slice']['frames'] == 16
           and all(d['same_frames'] for d in decoded.values()))
     if not ok:
-        raise AssertionError(f'bench: {head}; decode_bench: {decoded}')
-    return full
+        raise AssertionError(f'decode_bench: {decoded}')
 
 
 def check_graft_entry(card: str) -> dict:
@@ -2053,11 +2008,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import tiler_tpu_torch  # noqa: F401  (sets the TF32 switches)
-    from tiler_tpu_torch.bench import card_line
     from tiler_tpu_torch.config import EncoderConfig
     from tiler_tpu_torch.decode import decode_video
     from tiler_tpu_torch.ops.stats import psnr
-    from tiler_tpu_torch.tools.common import synthetic_clip_v2
+    from tiler_tpu_torch.tools.common import card_line, synthetic_clip_v2
 
     t_start = time.perf_counter()
     card = card_line()
@@ -2130,10 +2084,8 @@ def main() -> int:
             prep[f'launches_{name}'] = got['nn1_prepare']
             kpp[f'launches_{name}'] = got['kmeans_pp']
         check_cli_multi(card, tmp)
-        with time_limit(600, 'measurement entry points'):
-            full = check_bench(card, blob, tmp)
-        record['launches_bench_small'] = full['k1_launches'][0]
-        prep['launches_bench_small'] = full['k1_prepare_launches'][0]
+        with time_limit(600, 'decode benchmark'):
+            check_decode_bench(card, blob, tmp)
 
     with time_limit(600, 'compile-check entry points'):
         got = check_graft_entry(card)

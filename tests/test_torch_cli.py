@@ -253,6 +253,38 @@ def test_multi_device_flags_exit_2_by_name(work, capsys, flags, name):
     assert out.read_bytes() == want.read_bytes(), name
 
 
+@pytest.mark.parametrize('device,n,cards,said', [
+    ('cuda', 2, 0, '--devices 2: 2 devices asked for: only 0 device(s) '
+     'available'),
+    ('cuda', 4, 2, '--devices 4: 4 devices asked for: only 2 device(s) '
+     'available'),
+    ('cuda', 3, 4, '--devices 3: device count must be a power of two'),
+    ('cuda', 2, 4, None),
+    ('cuda', 1, 0, None),
+    ('cpu', 2, 0, None),
+    ('cpu', 3, 0, '--devices 3: device count must be a power of two')])
+def test_mesh_from_args(monkeypatch, device, n, cards, said):
+    """--devices N: a mesh of the first N cards (N logical CPU shards with
+    --device cpu), None for one device, and never a silent fallback: too
+    few cards, or N not a power of two, exits by name. Cards are counted,
+    never touched, so none is needed."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: cards > 0)
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: cards)
+    a = cli.build_parser().parse_args(
+        ['encode', 'in.npy', 'out.gtm', '--device', device, '--devices',
+         str(n)])
+    if said:
+        with pytest.raises(SystemExit) as e:
+            cli._mesh_from_args(a)
+        assert e.value.code == said
+    elif n == 1:
+        assert cli._mesh_from_args(a) is None
+    else:
+        want = [torch.device(device, i if device == 'cuda' else None)
+                for i in range(n)]
+        assert cli._mesh_from_args(a).flat == want
+
+
 @pytest.mark.parametrize('argv', [
     ['encode', 'clip.npy', 'o.gtm'], ['encode', 'clip.npy', 'o.gtm',
                                       '--stream'],

@@ -1,18 +1,19 @@
 """The port's round-trip counter (tiler_tpu_torch.utils.dispatch) against
 tiler_tpu.utils.dispatch, and the per-step counts an encode records in
-metrics['dispatches'] and the bench prints, on the CPU."""
+metrics['dispatches'] and the benchmark reads, on the CPU."""
 from __future__ import annotations
 
 import os
 import sys
 import threading
+import types
 
 import numpy as np
 import pytest
 import torch
 
+from gtmbench.metrics import round_trips_per_frame
 from tiler_tpu.utils import dispatch as jdispatch
-from tiler_tpu_torch import bench
 from tiler_tpu_torch.config import EncoderConfig
 from tiler_tpu_torch.constants import ENCODER_STEPS
 from tiler_tpu_torch.ops import kmeans, nn_kernels
@@ -171,43 +172,19 @@ def test_kernel_counts_the_launches_of_the_run(two_encodes):
         assert sum(c['kernel'] for c in d.values()) == sum(launches) == 0
 
 
-def test_bench_prints_the_sum_of_the_steps(two_encodes):
+def test_round_trips_total_is_the_sum_of_the_steps(two_encodes):
+    """The benchmark's round_trips_per_frame over a window of the two
+    encodes is one run's h2d + d2h + sync over all its steps, per frame,
+    and positive (test_every_step_has_its_round_trips holds each step's
+    total)."""
     enc = two_encodes[0][0]
-    rec = {'k1_launches': 0, 'k1_prepare_launches': 0, 'peak_bytes': None,
-           'sha256': ''}
-    keys = bench._port_keys(enc.state, [rec])
-    d = enc.state.metrics['dispatches']
-    assert keys['dispatches'] == d
-    assert keys['n_dispatches'] == sum(c['total'] for c in d.values()) > 0
-    assert 'warmup_dispatches' not in keys
-
-
-def test_bench_raises_when_a_run_counts_otherwise(monkeypatch):
-    """Every timed run must make the first timed run's round trips; the
-    warm-up may differ, and then stands beside them."""
-    monkeypatch.setattr(bench, 'PAL', 8)
-    frames = synthetic_clip_v2(2, 48, 64)
-    real = Encoder.run_all
-    calls = []
-
-    def extra_wait(runs_with_extra):
-        def run_all(self, *a, **kw):
-            calls.append(1)
-            blob = real(self, *a, **kw)
-            if len(calls) in runs_with_extra:
-                self.state.metrics['dispatches']['save']['d2h'] += 1
-            return blob
-        return run_all
-    monkeypatch.setattr(Encoder, 'run_all', extra_wait({3}))
-    with pytest.raises(RuntimeError, match='timed run 1 made the round'):
-        bench.encode_once(frames, warm=True, runs=2, device='cpu')
-    calls.clear()
-    monkeypatch.setattr(Encoder, 'run_all', extra_wait({1}))
-    _, enc, _, recs = bench.encode_once(frames, warm=True, runs=2,
-                                        device='cpu')
-    keys = bench._port_keys(enc.state, recs)
-    assert keys['warmup_dispatches']['save']['d2h'] == \
-        keys['dispatches']['save']['d2h'] + 1
+    total = sum(c['h2d'] + c['d2h'] + c['sync']
+                for c in enc.state.metrics['dispatches'].values())
+    n_frames = len(enc.state.frames_rgb)
+    window = types.SimpleNamespace(
+        encodes=[{'metrics': e.state.metrics} for e, _, _ in two_encodes],
+        frames=2 * n_frames)
+    assert round_trips_per_frame.read(window) == total / n_frames > 0
 
 
 def test_a_gop_keeps_the_per_step_layout():

@@ -74,9 +74,9 @@ def test_new_modules_are_walked_and_import_no_jax():
     functions that read or write PNGs)."""
     mods = ['player', 'render', 'utils.checkpoint', 'parallel.distributed',
             'pipeline.stream', 'pipeline.load', 'decode', '__main__',
-            'tools.stage3_precision', 'tools.profile_encode', 'bench',
-            'tools.decode_bench', 'tools.bench720', 'tools.bench1080',
-            'graft_entry', 'utils.dispatch']
+            'tools.stage3_precision', 'tools.profile_encode',
+            'tools.decode_bench', 'tools.common', 'graft_entry',
+            'utils.dispatch']
     code = _BLOCK + (
         "import importlib\n"
         f"for n in {mods!r}:\n"
@@ -88,19 +88,19 @@ def test_new_modules_are_walked_and_import_no_jax():
     assert out.returncode == 0, out.stderr
 
 
-def test_bench_cpu_mode_runs_with_jax_package_blocked():
-    """python -m tiler_tpu_torch.bench with TILER_BENCH_CPU=1 (the CPU
-    baseline at the 320x240 size) prints its cpu_fps line with tiler_tpu,
-    bench, jax and __graft_entry__ unimportable."""
+def test_decode_bench_runs_with_jax_package_blocked():
+    """tools.decode_bench on the web player's sample stream on the CPU
+    prints its line, every renderer's frames the numpy decoder's, with
+    tiler_tpu, bench, jax and __graft_entry__ unimportable."""
+    sample = os.path.join(REPO, 'decoders', 'web', 'sample.gtm')
     code = _BLOCK + (
-        "import os, runpy\n"
-        "os.environ.update(TILER_BENCH_CPU='1', TILER_BENCH_SMALL='1')\n"
-        "runpy.run_module('tiler_tpu_torch.bench', run_name='__main__',\n"
-        "                 alter_sys=True)\n"
+        "from tiler_tpu_torch.tools import decode_bench\n"
+        f"decode_bench.main([{sample!r}, '--device', 'cpu'])\n"
         + _NONE_LOADED)
     out = _run(code)
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1])['cpu_fps'] > 0
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res['frames'] == 48 and res['same_frames'] is True
 
 
 def test_parallel_modules_run_with_jax_package_blocked():

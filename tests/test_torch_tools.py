@@ -1,6 +1,6 @@
 """The experiment tools (tiler_tpu_torch.tools) at tiny sizes on the CPU,
-where they run the kernels' plain versions, and the encoder flags of the
-port's CLI."""
+where they run the kernels' plain versions, the decode benchmark and
+what the tools share, and the encoder flags of the port's CLI."""
 import dataclasses
 import glob
 import hashlib
@@ -17,17 +17,21 @@ from bench import synthetic_clip_v2
 from tiler_tpu.bitstream.gtm import read_gts
 from tiler_tpu_torch.config import EncoderConfig
 from tiler_tpu_torch.constants import ENCODER_STEPS
+from tiler_tpu_torch.decode import decode_video
 from tiler_tpu_torch.ops import nn_kernels as nk
 from tiler_tpu_torch.pipeline import frame_tiling
 from tiler_tpu_torch.pipeline.encoder import Encoder
-from tiler_tpu_torch.tools import (assign_opt_bench, nn_prec_bench,
-                                   profile_encode, stage3_precision)
+from tiler_tpu_torch.tools import (assign_opt_bench, common, decode_bench,
+                                   nn_prec_bench, profile_encode,
+                                   stage3_precision)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SAMPLE = os.path.join(REPO, 'decoders', 'web', 'sample.gtm')
 
 
 def _run(args):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one thread: the shapes are tiny and test processes share the cores
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
     return subprocess.run([sys.executable] + args, capture_output=True,
                           text=True, env=env, cwd=REPO, timeout=600)
 
@@ -112,14 +116,65 @@ def test_profile_encode_on_cpu():
     assert res['busy_s'] == 0 and res['top_kernels'] == []
 
 
-def test_tools_refuse_missing_cuda():
+@pytest.mark.parametrize('tool', ['nn_prec_bench', 'assign_opt_bench',
+                                  'stage3_precision', 'profile_encode',
+                                  'decode_bench'])
+def test_tools_refuse_missing_cuda(tool):
     import torch
     if torch.cuda.is_available():
         pytest.skip('this host has a CUDA device')
-    for tool in (nn_prec_bench, assign_opt_bench, stage3_precision,
-                 profile_encode):
-        with pytest.raises(RuntimeError, match='cuda'):
-            tool.main([])
+    argv = [SAMPLE] if tool == 'decode_bench' else []
+    with pytest.raises(RuntimeError, match='cuda'):
+        globals()[tool].main(argv)
+
+
+@pytest.mark.parametrize('device', ['cpu', 'cuda'])
+def test_card_line(monkeypatch, device):
+    """The device type off a card; on one, the first line nvidia-smi
+    prints for the card's name and power limit (stubbed here: no card is
+    touched)."""
+    def run(argv, **kw):
+        assert argv == ['nvidia-smi', '--query-gpu=name,power.limit',
+                        '--format=csv,noheader']
+        return subprocess.CompletedProcess(
+            argv, 0, 'NVIDIA H100 80GB HBM3, 700.00 W\nsecond card\n', '')
+    monkeypatch.setattr(common.subprocess, 'run', run)
+    want = 'cpu' if device == 'cpu' else 'NVIDIA H100 80GB HBM3, 700.00 W'
+    assert common.card_line(device) == want
+
+
+def test_default_stream_lies_inside_the_checkout():
+    """decode_bench reads its default stream from the repository and
+    nowhere around it; while the repository does not hold city_cif.gtm,
+    decode_bench names the path."""
+    assert os.path.commonpath([common.REF, REPO]) == REPO
+    assert common.ROOT == REPO
+    if not os.path.exists(common.REF):   # until the stream is committed
+        with pytest.raises(SystemExit) as e:
+            decode_bench.main(['--device', 'cpu'])
+        assert common.REF in str(e.value.code)
+
+
+def test_decode_bench_on_the_sample_stream(capsys):
+    res = decode_bench.main([SAMPLE, '--device', 'cpu'])
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == res
+    assert res['frames'] == 48 and res['stream'] == 'sample.gtm'
+    for key in ('numpy_fps', 'player_fps', 'player_first_frame_ms',
+                'torch_scan_fps', 'torch_fps'):
+        assert res[key] > 0, key
+    assert res['same_frames'] is True
+    assert (res['device'], res['card']) == ('cpu', 'cpu')
+    data = open(SAMPLE, 'rb').read()
+    from tiler_tpu_torch.decode import decode_video_torch_scan
+    assert np.array_equal(decode_video_torch_scan(data, 'cpu'),
+                          decode_video(data)[0])
+
+
+def test_decode_bench_names_a_missing_stream(tmp_path):
+    path = str(tmp_path / 'none.gtm')
+    with pytest.raises(SystemExit) as e:
+        decode_bench.main([path, '--device', 'cpu'])
+    assert path in str(e.value.code)
 
 
 @pytest.mark.parametrize('flags', [

@@ -13,8 +13,8 @@ import os
 import subprocess
 import sys
 
-from ..bench import card_line
 from ..ops import nn_kernels as nk
+from .common import card_line
 
 
 def main() -> int:

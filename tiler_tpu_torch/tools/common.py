@@ -1,9 +1,12 @@
 """What the experiment tools and the smoke run share: the device (a card
-unless asked for the CPU), a timer, PsyV features of random tiles and
-the synthetic clips of the benchmark (the noise clip, cuts_v2 and the
+unless asked for the CPU), the card's name and power limit, a timer,
+PsyV features of random tiles, the default stream of the decode
+benchmark and the synthetic clips (the noise clip, cuts_v2 and the
 plasma clip of the web player's sample stream)."""
 from __future__ import annotations
 
+import os
+import subprocess
 import time
 
 import numpy as np
@@ -12,11 +15,30 @@ import torch
 from ..ops import features
 from ..pipeline.encoder import resolve_device
 
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+# the reference project's published demo stream (300 frames of 352x288 at
+# 30 fps), at the place it takes in this repository once committed; the
+# tools read nothing outside their own checkout
+REF = os.path.join(ROOT, 'docs', 'demo', 'city_cif.gtm')
+
 
 def device_from(name: str) -> torch.device:
     """The tools' --device; cuda must exist (no fallback to the CPU)."""
     import tiler_tpu_torch  # noqa: F401  (sets the TF32 switches)
     return resolve_device(name)
+
+
+def card_line(device='cuda') -> str:
+    """The card's name and power limit as nvidia-smi prints them, or the
+    device type when the run is not on a card."""
+    if torch.device(device).type != 'cuda':
+        return torch.device(device).type
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 def device_name(dev: torch.device) -> str:

@@ -3,7 +3,7 @@
     python -m tiler_tpu_torch.tools.decode_bench [path.gtm] [--device cuda]
 
 The path defaults to the reference's city_cif demo stream at its place
-in the repository (bench.REF, docs/demo/city_cif.gtm); a missing file is
+in the repository (common.REF, docs/demo/city_cif.gtm); a missing file is
 an error that names it. Measures the numpy decoder
 (native parse + numpy blit; one warm call first), the lazy player
 (frames/s and the first frame's milliseconds), and the two device
@@ -11,7 +11,7 @@ renderers on --device: decode_video_torch_scan (one upload, one
 download) and decode_video_torch (a frame at a time), each after a warm
 call, the clock stopped after torch.cuda.synchronize() on a card. Both
 renderers' frames must equal the numpy decoder's. Prints one JSON line
-with the card (bench.card_line) beside the rates. --device defaults to
+with the card (common.card_line) beside the rates. --device defaults to
 cuda and fails without a card.
 """
 from __future__ import annotations
@@ -24,10 +24,9 @@ import time
 import numpy as np
 import torch
 
-from ..bench import REF, card_line
 from ..decode import decode_video, decode_video_torch, decode_video_torch_scan
 from ..player import GTMPlayer
-from .common import device_from
+from .common import REF, card_line, device_from
 
 
 def main(argv=None) -> dict:

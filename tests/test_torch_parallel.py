@@ -440,11 +440,12 @@ def test_metric_keys_are_the_jax_packages(dryrun):
     """run_all's metric keys (and those of the phase dicts and of the
     per-step round trips) are tiler_tpu's, but for its upload counter, and
     the port's counts of stage-3 kernel calls, of stage-2 feature rows
-    and of GlobalTiling's KModes solves by path, Save's phases and the
-    phases it clocks inside Dither and FrameTiling."""
+    and of GlobalTiling's KModes solves by path, Save's phases and count
+    of compression jobs, and the phases it clocks inside Dither and
+    FrameTiling."""
     mine, theirs = dryrun['enc'].state.metrics, dryrun['jmetrics']
     assert set(mine) - {'ft_nn_calls', 'ft_feat_rows', 'save_phases',
-                        'gt_kmodes_solves'} == \
+                        'gt_kmodes_solves', 'save_lzma_jobs'} == \
         set(theirs) - {'upload_changed_frac'}
     for key in ('mu_phases', 'gt_phases', 'mesh_sharded_wall',
                 'dither_phases', 'ft_phases', 'dispatches'):

@@ -34,10 +34,14 @@ PHASES = {
     'ft_phases': ('frame_tiling', ('dataset', 'upload', 'mark',
                                    'cand_feats', 'assign'),
                   ('prepare', 'search', 'cand_set')),
-    'save_phases': ('save', (), ('pack', 'lzma')),
+    'save_phases': ('save', (), ('pack', 'lzma', 'lzma_native',
+                                 'lzma_liblzma')),
 }
+# the spans of Save's compression jobs, opened on the pool's threads
+POOLED = ('save/lzma_native', 'save/lzma_liblzma')
+# the spans on the encode thread
 LABELS = [f'{step}/{k}' for step, old, new in PHASES.values()
-          for k in old + new]
+          for k in old + new if f'{step}/{k}' not in POOLED]
 # MakeUnique runs once more inside GlobalTiling
 ALSO_IN = {'make_unique': 'global_tiling'}
 # a span and the spans that it holds, one after the other
@@ -127,6 +131,23 @@ def test_nested_spans_fit_inside(encodes, outer, inner):
     d = encodes['delta']
     assert d[outer] > 0
     assert d[outer] + 1e-9 >= sum(d[k] for k in inner)
+
+
+def test_save_runs_a_job_per_stream_and_encoder_side_by_side(encodes):
+    """Under 'auto' each keyframe stream is one native and one liblzma
+    job of a pool of at most 8 threads: the jobs' seconds add up to more
+    than the wall of 'save/lzma' that holds them, and to no more than 8
+    times it. No job runs on the encode thread."""
+    d, state = encodes['delta'], encodes['state']
+    k = len(state.keyframes)
+    assert state.metrics['save_lzma_jobs'] == {'native': k, 'liblzma': k}
+    assert d['save/lzma_native'] > 0 and d['save/lzma_liblzma'] > 0
+    assert d['save/lzma_native'] + d['save/lzma_liblzma'] \
+        <= 8 * d['save/lzma'] + 1e-9
+    thread = {(e['pid'], e['tid']) for e in encodes['ann']
+              if e['name'].startswith('step:')}
+    assert not [e for e in encodes['ann'] if e['name'] in POOLED
+                and (e['pid'], e['tid']) in thread]
 
 
 def test_cand_set_lies_inside_cand_feats(encodes):

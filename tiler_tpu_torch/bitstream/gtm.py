@@ -14,12 +14,16 @@ reference's per-cell loop (main.pas:4677-4719).
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
 import enum
+import os
 import struct
 
 import numpy as np
 
+from .. import native
+from ..utils.dispatch import span
 from .lzma_codec import lzma_compress_alone, lzma_decompress_concat
 
 TILE_W = 8
@@ -231,6 +235,8 @@ class GTMWriter:
                                 kf_count=kf_count, frame_count=frame_count)
         self.kf_infos: list[GTMKeyFrameInfo] = []
         self.streams: list[bytes] = []
+        # the compression jobs run, per encoder (compress_keyframe_streams)
+        self.lzma_jobs = {'native': 0, 'liblzma': 0}
         tw, th = width // TILE_W, height // TILE_W
         # First keyframe's stream is prefixed by dimensions (+ the global
         # tileset when given; per-keyframe segmented tilesets may instead
@@ -269,18 +275,19 @@ class GTMWriter:
         self._kf_frames.append(n_frames)
 
     def tobytes(self) -> bytes:
-        # compress keyframe streams on a thread pool (liblzma releases the
-        # GIL); stats follow main.pas:4727-4757
+        # compress keyframe streams on a thread pool; stats follow
+        # main.pas:4727-4757
         comps = self._compress_pending()
         return b''.join([self.finalize_container()] + comps)
 
     def _compress_pending(self) -> list[bytes]:
-        """Compress every buffered raw keyframe stream (thread pool;
-        liblzma and the native encoder both release the GIL) and record
-        the compressed sizes in kf_infos."""
+        """Compress every buffered raw keyframe stream (one thread pool
+        job per stream and encoder) and record the compressed sizes in
+        kf_infos."""
         comps = compress_keyframe_streams(self.streams,
                                           fast_lzma=self.fast_lzma,
-                                          lzma_mode=self.lzma_mode)
+                                          lzma_mode=self.lzma_mode,
+                                          jobs=self.lzma_jobs)
         for info, comp in zip(self.kf_infos, comps):
             info.compressed_size = len(comp)
         self.streams = []
@@ -354,56 +361,41 @@ _BEST_CFGS = ((8, 0, 2), (8, 0, 4), (8, 1, 2))
 def compress_keyframe_stream(raw: bytes, fast_lzma: bool = False,
                              lzma_mode: str = 'lc3') -> bytes:
     """One keyframe stream's LZMA-alone bytes under the configured mode:
-    'lc3' liblzma / 'lc8' native / 'auto' smaller-of-both / 'best'
-    smallest over a small native (lc,lp,pb) sweep + liblzma (~3x the
-    compression cost of 'auto'; for transcode/final distribution).
+    the one-stream case of compress_keyframe_streams."""
+    return compress_keyframe_streams([raw], fast_lzma, lzma_mode)[0]
 
-    'auto'/'best' degrade to the liblzma result when the native encoder
-    cannot build (no C++ toolchain on this host); 'lc8' stays a hard
-    requirement because the caller asked for that exact framing."""
-    if lzma_mode in ('lc8', 'auto', 'best'):
-        from ..native import NoToolchainError
-        try:
-            # availability check ONLY (lazy g++ build): a genuine encode
-            # failure below must raise, not masquerade as "no toolchain"
-            # and silently ship larger lc3 bytes. Only the MISSING
-            # toolchain is a graceful-degrade condition — a nonzero
-            # compile exit propagates even for 'auto'/'best'.
-            # DELIBERATE scope (r4 advisor): that also surfaces
-            # environmentally-broken toolchains (half-installed g++,
-            # stale incompatible .so) as errors rather than silent
-            # downgrades — a host that CLAIMS a toolchain but cannot
-            # build is a host the operator should hear about.
-            from ..native import get_lib, lzma_encode_alone
-            get_lib()
-        except NoToolchainError:
-            if lzma_mode == 'lc8':
-                raise
-            global _warned_no_native_lzma
-            if not _warned_no_native_lzma:
-                _warned_no_native_lzma = True
-                import warnings
-                warnings.warn(
-                    'native LZMA encoder unavailable; '
-                    f'lzma_mode={lzma_mode!r} falls back to liblzma lc3')
-            return lzma_compress_alone(raw, fast=fast_lzma)
-        # fast: greedy parse at shallow depth; full: the optimal
-        # (price-DP) parse that beats the reference's own lzma.exe
-        # output on its payloads (docs/RESULTS.md round-4 table).
-        # depth 32 for the optimal parse: measured ±0.08% vs depth
-        # 128 on both demo payloads at ~1.7x the throughput (deeper
-        # chains mostly add farther matches the price DP rejects)
-        depth, nice = (16, 32) if fast_lzma else (32, 128)
-        cfgs = _BEST_CFGS if lzma_mode == 'best' else (_NATIVE_CFG,)
-        native = min(
-            (lzma_encode_alone(raw, lc=lc, lp=lp, pb=pb, depth=depth,
-                               nice_len=nice, optimal=not fast_lzma)
-             for lc, lp, pb in cfgs), key=len)
+
+def _native_cfgs(lzma_mode: str) -> tuple:
+    """The native (lc, lp, pb) configs that `lzma_mode` encodes with:
+    none under 'lc3'. 'auto'/'best' degrade to liblzma alone when the
+    native encoder cannot build (no C++ toolchain on this host); 'lc8'
+    stays a hard requirement because the caller asked for that exact
+    framing."""
+    if lzma_mode == 'lc3':
+        return ()
+    try:
+        # availability check ONLY (lazy g++ build): a genuine encode
+        # failure in a job must raise, not masquerade as "no toolchain"
+        # and silently ship larger lc3 bytes. Only the MISSING
+        # toolchain is a graceful-degrade condition — a nonzero
+        # compile exit propagates even for 'auto'/'best'. Deliberately,
+        # that also surfaces environmentally-broken toolchains
+        # (half-installed g++, stale incompatible .so) as errors rather
+        # than silent downgrades — a host that CLAIMS a toolchain but
+        # cannot build is a host the operator should hear about.
+        native.get_lib()
+    except native.NoToolchainError:
         if lzma_mode == 'lc8':
-            return native
-        lib = lzma_compress_alone(raw, fast=fast_lzma)
-        return native if len(native) < len(lib) else lib
-    return lzma_compress_alone(raw, fast=fast_lzma)
+            raise
+        global _warned_no_native_lzma
+        if not _warned_no_native_lzma:
+            _warned_no_native_lzma = True
+            import warnings
+            warnings.warn(
+                'native LZMA encoder unavailable; '
+                f'lzma_mode={lzma_mode!r} falls back to liblzma lc3')
+        return ()
+    return _BEST_CFGS if lzma_mode == 'best' else (_NATIVE_CFG,)
 
 
 _warned_no_native_lzma = False
@@ -465,17 +457,58 @@ def transcode_gtm(data: bytes, lzma_mode: str,
 
 
 def compress_keyframe_streams(raws: list[bytes], fast_lzma: bool = False,
-                              lzma_mode: str = 'lc3') -> list[bytes]:
-    """Thread-pooled compress_keyframe_stream over many streams (the
-    compressors release the GIL)."""
-    import concurrent.futures as cf
-    import functools
-    import os
-    compress = functools.partial(compress_keyframe_stream,
-                                 fast_lzma=fast_lzma, lzma_mode=lzma_mode)
+                              lzma_mode: str = 'lc3',
+                              jobs: dict | None = None) -> list[bytes]:
+    """Each keyframe stream's LZMA-alone bytes under the configured mode:
+    'lc3' liblzma / 'lc8' native / 'auto' smaller-of-both / 'best'
+    smallest over a small native (lc,lp,pb) sweep + liblzma (~3x the
+    compression cost of 'auto'; for transcode/final distribution).
+
+    One thread pool runs one job per (stream, encoder), so a stream's
+    encoders run side by side (both release the GIL). The largest
+    streams are submitted first, each with its native jobs before its
+    liblzma job, so the longest jobs start first where jobs outnumber
+    workers. A stream keeps its shortest result: the liblzma one on a
+    tie with a native one, else the first in _BEST_CFGS order. Each job
+    runs under the span 'save/lzma_native' or 'save/lzma_liblzma';
+    `jobs`, where given, counts the jobs run of each kind under
+    'native' and 'liblzma'."""
+    if not raws:
+        return []
+    cfgs = _native_cfgs(lzma_mode)
+    with_liblzma = lzma_mode != 'lc8'
+    # fast: greedy parse at shallow depth; full: the optimal
+    # (price-DP) parse that beats the reference's own lzma.exe
+    # output on its payloads (docs/RESULTS.md round-4 table).
+    # depth 32 for the optimal parse: measured ±0.08% vs depth
+    # 128 on both demo payloads at ~1.7x the throughput (deeper
+    # chains mostly add farther matches the price DP rejects)
+    depth, nice = (16, 32) if fast_lzma else (32, 128)
+
+    def native_job(raw, lc, lp, pb):
+        with span('save/lzma_native'):
+            return native.lzma_encode_alone(
+                raw, lc=lc, lp=lp, pb=pb, depth=depth, nice_len=nice,
+                optimal=not fast_lzma)
+
+    def liblzma_job(raw):
+        with span('save/lzma_liblzma'):
+            return lzma_compress_alone(raw, fast=fast_lzma)
+
+    if jobs is not None:
+        jobs['native'] = jobs.get('native', 0) + len(cfgs) * len(raws)
+        jobs['liblzma'] = (jobs.get('liblzma', 0)
+                           + with_liblzma * len(raws))
     workers = min(max(os.cpu_count() or 1, 1), 8)
+    futures = [None] * len(raws)
     with cf.ThreadPoolExecutor(workers) as ex:
-        return list(ex.map(compress, raws))
+        for i in sorted(range(len(raws)), key=lambda i: -len(raws[i])):
+            nat = [ex.submit(native_job, raws[i], *c) for c in cfgs]
+            lib = [ex.submit(liblzma_job, raws[i])] if with_liblzma else []
+            # min keeps the first of equal lengths: liblzma, then the
+            # native configs in order
+            futures[i] = lib + nat
+        return [min((f.result() for f in fs), key=len) for fs in futures]
 
 
 @dataclasses.dataclass

@@ -14,7 +14,8 @@ the step's host<->card round trips and kernel launches (utils.dispatch),
 the synchronize included. Inside a step, each phase is a span
 '<step>/<key>', and the step writes the phases' seconds into its dict:
 metrics['dither_phases'], 'mu_phases', 'gt_phases', 'ft_phases' and
-'save_phases' (the JAX package has no Save phases).
+'save_phases' (the JAX package has no Save phases, nor Save's count of
+compression jobs, metrics['save_lzma_jobs']).
 """
 from __future__ import annotations
 

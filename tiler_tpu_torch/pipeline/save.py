@@ -6,7 +6,10 @@ Reference: SaveStream (main.pas:4529-4763). Requires a reindexed state
 Uses the smoothed tilemap when the Smooth step ran, otherwise the plain
 tilemap with no skips. metrics['save_phases'] holds the host seconds of
 the spans 'save/pack' (the keyframes' command streams) and 'save/lzma'
-(their compression and the container, writer.tobytes).
+(their compression and the container, writer.tobytes), and the summed
+seconds of the compression pool's jobs, 'save/lzma_native' and
+'save/lzma_liblzma': run side by side, they add up to more than 'lzma'.
+metrics['save_lzma_jobs'] counts those jobs, {'native': n, 'liblzma': n}.
 """
 from __future__ import annotations
 
@@ -49,7 +52,9 @@ def run_save(state: EncoderState, fast_lzma: bool = False) -> bytes:
                                 frames)
     with span('save/lzma'):
         blob = writer.tobytes()
-    state.metrics['save_phases'] = phases('save', before, ('pack', 'lzma'))
+    state.metrics['save_phases'] = phases(
+        'save', before, ('pack', 'lzma', 'lzma_native', 'lzma_liblzma'))
+    state.metrics['save_lzma_jobs'] = writer.lzma_jobs
     state.metrics['gtm_bytes'] = len(blob)
     state.metrics['kbps'] = (len(blob) / 1024.0 * 8.0 / state.n_frames
                              * state.fps)

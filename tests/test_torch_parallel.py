@@ -432,7 +432,7 @@ def test_ft_row_budget_grouping_byte_identical(dryrun, monkeypatch):
 
 # the port's phase spans that the JAX package does not clock
 PORT_PHASES = {'dither_phases': {'features', 'kmeans_pp', 'lloyd',
-                                 'mirrors'},
+                                 'mirrors', 'var', 'yliluoma'},
                'ft_phases': {'prepare', 'search', 'cand_set'}}
 
 
@@ -441,11 +441,12 @@ def test_metric_keys_are_the_jax_packages(dryrun):
     per-step round trips) are tiler_tpu's, but for its upload counter, and
     the port's counts of stage-3 kernel calls, of stage-2 feature rows
     and of GlobalTiling's KModes solves by path, Save's phases and count
-    of compression jobs, and the phases it clocks inside Dither and
-    FrameTiling."""
+    of compression jobs, Dither's counts of plan keys and of VAR's work,
+    and the phases it clocks inside Dither and FrameTiling."""
     mine, theirs = dryrun['enc'].state.metrics, dryrun['jmetrics']
     assert set(mine) - {'ft_nn_calls', 'ft_feat_rows', 'save_phases',
-                        'gt_kmodes_solves', 'save_lzma_jobs'} == \
+                        'gt_kmodes_solves', 'save_lzma_jobs',
+                        'dither_plan_keys', 'dither_var'} == \
         set(theirs) - {'upload_changed_frac'}
     for key in ('mu_phases', 'gt_phases', 'mesh_sharded_wall',
                 'dither_phases', 'ft_phases', 'dispatches'):

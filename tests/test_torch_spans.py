@@ -6,6 +6,7 @@ tools.profile_encode's reading of spans, idle gaps, launches and host
 waits from a trace."""
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
@@ -23,10 +24,14 @@ from tiler_tpu_torch.utils import dispatch
 torch.set_num_threads(1)
 
 CFG = EncoderConfig(palette_count=8, max_tiles=300)
+# Yliluoma dithering on VAR palettes: the spans only that path opens
+CFG_YV = dataclasses.replace(CFG, use_thomas_knoll=False, use_dl3=False)
+YLILUOMA = ('dither/yliluoma',)
 # phase dict: (step, the keys it always had, the keys the spans added)
 PHASES = {
     'dither_phases': ('dither', ('prepare_kmeans', 'quantize', 'dither'),
-                      ('features', 'kmeans_pp', 'lloyd', 'mirrors')),
+                      ('features', 'kmeans_pp', 'lloyd', 'mirrors', 'var',
+                       'yliluoma')),
     'mu_phases': ('make_unique', ('queue', 'sync'), ()),
     'gt_phases': ('global_tiling', ('sigs_bins', 'solve', 'merge_host',
                                     'gt_unique', 'gt_reindex',
@@ -37,8 +42,9 @@ PHASES = {
     'save_phases': ('save', (), ('pack', 'lzma', 'lzma_native',
                                  'lzma_liblzma')),
 }
-# the spans of Save's compression jobs, opened on the pool's threads
-POOLED = ('save/lzma_native', 'save/lzma_liblzma')
+# the spans of Save's compression jobs and of Dither's VAR jobs, opened on
+# the pools' threads
+POOLED = ('save/lzma_native', 'save/lzma_liblzma', 'dither/var')
 # the spans on the encode thread
 LABELS = [f'{step}/{k}' for step, old, new in PHASES.values()
           for k in old + new if f'{step}/{k}' not in POOLED]
@@ -85,13 +91,36 @@ def encodes(tmp_path_factory):
                 state=plain.state, delta=delta, events=events, ann=ann)
 
 
+@pytest.fixture(scope='module')
+def yl_encodes(tmp_path_factory):
+    """The clip encoded with Yliluoma on VAR palettes under the profiler;
+    the span seconds the encode added."""
+    frames = synthetic_clip_v2(6, 48, 64)
+    prof = str(tmp_path_factory.mktemp('prof_yv'))
+    enc = Encoder(CFG_YV, device='cpu')
+    before = dispatch.spans()
+    enc.run_all(frames, fps=24, fast_lzma=True, profile_dir=prof)
+    after = dispatch.spans()
+    delta = {k: v - before.get(k, 0.0) for k, v in after.items()
+             if v != before.get(k, 0.0)}
+    trace, = glob.glob(os.path.join(prof, '*.pt.trace.json'))
+    with open(trace) as fh:
+        events = json.load(fh)['traceEvents']
+    ann = [e for e in events if e.get('ph') == 'X'
+           and e.get('cat') == 'user_annotation']
+    return dict(frames=frames, state=enc.state, delta=delta, events=events,
+                ann=ann)
+
+
 def test_the_profiler_leaves_the_stream(encodes):
     assert len(encodes['state'].keyframes) >= 2
     assert encodes['traced_blob'] == encodes['blob']
 
 
 @pytest.mark.parametrize('label', LABELS)
-def test_each_span_lies_in_its_step_on_the_encode_thread(encodes, label):
+def test_each_span_lies_in_its_step_on_the_encode_thread(request, label):
+    encodes = request.getfixturevalue(
+        'yl_encodes' if label in YLILUOMA else 'encodes')
     steps = [e for e in encodes['ann'] if e['name'].startswith('step:')]
     assert {e['name'][5:] for e in steps} == set(ENCODER_STEPS)
     thread = {(e['pid'], e['tid']) for e in steps}
@@ -150,6 +179,47 @@ def test_save_runs_a_job_per_stream_and_encoder_side_by_side(encodes):
                 and (e['pid'], e['tid']) in thread]
 
 
+def test_var_runs_a_job_per_group_off_the_encode_thread(yl_encodes):
+    """Under VAR each group's quantizer is one span 'dither/var' on the
+    quantize pool's threads: the jobs' seconds add up to more than 0, and
+    no job opens on the encode thread; metrics['dither_var'] counts every
+    group of every keyframe, its distinct colours and merges."""
+    d, state = yl_encodes['delta'], yl_encodes['state']
+    assert d['dither/var'] > 0
+    thread = {(e['pid'], e['tid']) for e in yl_encodes['ann']
+              if e['name'].startswith('step:')}
+    assert not [e for e in yl_encodes['ann'] if e['name'] == 'dither/var'
+                and (e['pid'], e['tid']) in thread]
+    got = state.metrics['dither_var']
+    assert got['groups'] == CFG_YV.palette_count * len(state.keyframes)
+    assert got['colours'] > 0 and 0 <= got['merges'] < got['colours']
+    assert state.metrics['dither_phases']['var'] == round(d['dither/var'], 3)
+
+
+def test_yliluoma_scan_lies_inside_the_dither_phase(yl_encodes):
+    """The Yliluoma scan is clocked inside 'dither/dither', once a scan,
+    and its phase reads its span; both paths count the plan keys."""
+    ann, d = yl_encodes['ann'], yl_encodes['delta']
+    outer = [e for e in ann if e['name'] == 'dither/dither']
+    inner = [e for e in ann if e['name'] == 'dither/yliluoma']
+    assert len(inner) == len(outer) >= 1
+    for e in inner:
+        assert any(o['ts'] <= e['ts'] and e['ts'] + e['dur'] <= o['ts']
+                   + o['dur'] for o in outer), e
+    got = yl_encodes['state'].metrics['dither_phases']
+    assert 0.0 < d['dither/yliluoma'] <= d['dither/dither']
+    assert got['yliluoma'] == round(d['dither/yliluoma'], 3)
+    assert yl_encodes['state'].metrics['dither_plan_keys'] > 0
+
+
+def test_knoll_opens_no_yliluoma_or_var_span(encodes):
+    m = encodes['state'].metrics
+    assert 'dither/yliluoma' not in encodes['delta']
+    assert 'dither/var' not in encodes['delta']
+    assert m['dither_phases']['yliluoma'] == m['dither_phases']['var'] == 0
+    assert 'dither_var' not in m and m['dither_plan_keys'] > 0
+
+
 def test_cand_set_lies_inside_cand_feats(encodes):
     """Stage 2's host set logic is clocked inside stage 2, on the
     profiler's clock too, and is no longer than it."""
@@ -185,11 +255,13 @@ def test_step_times_are_the_step_spans(encodes):
                                   abs=1e-9)
 
 
-def test_the_tool_reads_the_spans_of_a_trace(encodes):
+def test_the_tool_reads_the_spans_of_a_trace(encodes, yl_encodes):
     out = profile_encode.span_summary(encodes['events'],
                                       len(encodes['frames']))
     spans = out['spans']
-    assert set(LABELS) <= set(spans)
+    assert set(LABELS) - set(YLILUOMA) <= set(spans)
+    assert set(YLILUOMA) <= set(profile_encode.span_summary(
+        yl_encodes['events'], len(yl_encodes['frames']))['spans'])
     assert {f'step:{s}' for s in ENCODER_STEPS} <= set(spans)
     for label, r in spans.items():
         assert r['count'] >= 1 and r['host_s'] > 0, label

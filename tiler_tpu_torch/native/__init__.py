@@ -19,7 +19,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), 'build',
                          'tiler_tpu_torch')
 _SO_PATH = os.path.join(BUILD_DIR, 'libtiler_native.so')
 _SOURCES = ['lzma1.cc', 'lzma1_enc.cc', 'dl3.cc', 'gtm_pack.cc',
-            'fs_dither.cc']
+            'fs_dither.cc', 'var_quant.cc']
 _lock = threading.Lock()
 _lib = None
 _build_error: Exception | None = None
@@ -110,6 +110,16 @@ def get_lib():
         lib.tiler_dl3_quant_bins.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        lib.tiler_var_quant.restype = None
+        lib.tiler_var_quant.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.tiler_var_quant_tiles.restype = None
+        lib.tiler_var_quant_tiles.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.tiler_gtm_parse.restype = ctypes.c_void_p
         lib.tiler_gtm_parse.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int)]
@@ -268,6 +278,68 @@ def dl3_quant_bins(r_sums, g_sums, b_sums, counts, quant_to: int):
         b.ctypes.data_as(ctypes.c_void_p), c.ctypes.data_as(ctypes.c_void_p),
         len(c), quant_to, out.ctypes.data_as(ctypes.c_void_p))
     return out, n
+
+
+# the native sort packs each count into 40 bits
+_VAR_MAX_COUNT = 1 << 40
+
+
+def _var_pattern(pattern_row, tile_palette_size: int):
+    import numpy as np
+    pat = np.ascontiguousarray(pattern_row, np.float64)
+    if pat.shape != (tile_palette_size,):
+        raise ValueError(f'pattern_row must be [{tile_palette_size}], got '
+                         f'{pat.shape}')
+    return pat
+
+
+def var_quant(cols, counts, total_budget: int, pal_var: float,
+              tile_palette_size: int, palette_count: int, pattern_row):
+    """Value-at-Risk palette of a histogram (ops.palette.var_palette's
+    semantics): cols [U] packed r|g<<8|b<<16, counts [U] their uses.
+    Returns ([tile_palette_size] uint32 packed entries, colours, merges)."""
+    import numpy as np
+    lib = get_lib()
+    c = np.ascontiguousarray(cols, np.uint32)
+    n = np.ascontiguousarray(counts, np.int64)
+    pat = _var_pattern(pattern_row, tile_palette_size)
+    if n.shape != c.shape or c.ndim != 1:
+        raise ValueError('cols and counts must be [U] arrays of one length')
+    if len(n) and (n.min() < 0 or n.max() >= _VAR_MAX_COUNT):
+        raise ValueError(f'counts must lie in [0, {_VAR_MAX_COUNT})')
+    out = np.zeros(tile_palette_size, np.uint32)
+    stats = np.zeros(2, np.int64)
+    lib.tiler_var_quant(
+        c.ctypes.data_as(ctypes.c_void_p), n.ctypes.data_as(ctypes.c_void_p),
+        len(c), int(total_budget), float(pal_var), tile_palette_size,
+        palette_count, pat.ctypes.data_as(ctypes.c_void_p),
+        out.ctypes.data_as(ctypes.c_void_p),
+        stats.ctypes.data_as(ctypes.c_void_p))
+    return out, int(stats[0]), int(stats[1])
+
+
+def var_quant_tiles(tiles_rgb, sel, total_budget: int, pal_var: float,
+                    tile_palette_size: int, palette_count: int, pattern_row):
+    """var_quant of the pixels of tiles_rgb[sel] ([N,8,8,3] uint8), the
+    histogram made inside the call, without the gathered pixel copy."""
+    import numpy as np
+    lib = get_lib()
+    t = np.ascontiguousarray(tiles_rgb, np.uint8)
+    s = np.ascontiguousarray(sel, np.int32)
+    pat = _var_pattern(pattern_row, tile_palette_size)
+    if t.shape[1:] != (8, 8, 3):
+        raise ValueError(f'tiles_rgb must be [N,8,8,3], got {t.shape}')
+    if len(s) and (s.min() < 0 or s.max() >= len(t)):
+        raise IndexError('sel indexes past tiles_rgb')
+    out = np.zeros(tile_palette_size, np.uint32)
+    stats = np.zeros(2, np.int64)
+    lib.tiler_var_quant_tiles(
+        t.ctypes.data_as(ctypes.c_void_p), s.ctypes.data_as(ctypes.c_void_p),
+        len(s), int(total_budget), float(pal_var), tile_palette_size,
+        palette_count, pat.ctypes.data_as(ctypes.c_void_p),
+        out.ctypes.data_as(ctypes.c_void_p),
+        stats.ctypes.data_as(ctypes.c_void_p))
+    return out, int(stats[0]), int(stats[1])
 
 
 def gtm_parse_commands(commands: bytes):

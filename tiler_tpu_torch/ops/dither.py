@@ -92,10 +92,11 @@ def knoll_dither_tiles(tiles_rgb: torch.Tensor,
 
 
 def _dedup_keys(tiles_rgb: torch.Tensor, group_pals: np.ndarray,
-                pal_group: torch.Tensor):
+                pal_group: torch.Tensor, stats: dict | None = None):
     """The cached dithers' key dedup: per pixel the key group<<24 | b<<16
     | g<<8 | r. Returns (sorted unique keys, inverse [N,64], the palettes
-    [G,S,3] uint8 on the tiles' device)."""
+    [G,S,3] uint8 on the tiles' device); adds the unique keys' count to
+    stats['plan_keys'] where stats is given."""
     if group_pals.shape[0] > 256:
         raise ValueError('pal_group must fit 8 bits')
     n = tiles_rgb.shape[0]
@@ -104,6 +105,8 @@ def _dedup_keys(tiles_rgb: torch.Tensor, group_pals: np.ndarray,
             | (pal_group.to(torch.int64)[:, None] << 24))
     note('d2h')     # the unique keys' count
     uniq, inv = torch.unique(keys.reshape(-1), return_inverse=True)
+    if stats is not None:
+        stats['plan_keys'] = stats.get('plan_keys', 0) + uniq.shape[0]
     note('h2d')
     pals = torch.from_numpy(np.ascontiguousarray(group_pals)).to(
         tiles_rgb.device)
@@ -152,7 +155,8 @@ def _apply(fn, rows, *args):
 def knoll_dither_tiles_cached(tiles_rgb: torch.Tensor,
                               group_pals: np.ndarray,
                               pal_group: torch.Tensor,
-                              map_rows=_apply) -> torch.Tensor:
+                              map_rows=_apply,
+                              stats: dict | None = None) -> torch.Tensor:
     """Knoll dither with one plan per unique (palette group, colour).
 
     tiles_rgb [N,8,8,3] uint8 and pal_group [N] int (ids into group_pals
@@ -161,13 +165,13 @@ def knoll_dither_tiles_cached(tiles_rgb: torch.Tensor,
     through map_rows(fn, rows, *args), which may cut the rows (a tuple of
     tensors) across devices and join fn's results in row order
     (parallel.mesh_pipeline.map_rows); the key dedup, a sort, stays on
-    the working device. Same bytes either way."""
+    the working device. Same bytes either way. `stats`: as _dedup_keys."""
     dev = tiles_rgb.device
     n = tiles_rgb.shape[0]
     if n == 0:
         return torch.zeros((0, TILE_W, TILE_W), dtype=torch.uint8,
                            device=dev)
-    uniq, inv, pals = _dedup_keys(tiles_rgb, group_pals, pal_group)
+    uniq, inv, pals = _dedup_keys(tiles_rgb, group_pals, pal_group, stats)
     counts = map_rows(knoll_plan_counts, (uniq,), pals)
     out = map_rows(knoll_select, (inv, pal_group), counts, pals)
     return out.reshape(n, TILE_W, TILE_W)
@@ -250,17 +254,19 @@ def yliluoma_dither_tiles(tiles_rgb: torch.Tensor,
 def yliluoma_dither_tiles_cached(tiles_rgb: torch.Tensor,
                                  group_pals: np.ndarray,
                                  pal_group: torch.Tensor,
-                                 mixed_colors: int = 4) -> torch.Tensor:
+                                 mixed_colors: int = 4,
+                                 stats: dict | None = None) -> torch.Tensor:
     """Yliluoma-2 dither with one plan per unique (palette group, colour),
     as knoll_dither_tiles_cached: tiles_rgb [N,8,8,3] uint8 and pal_group
     [N] int (ids into group_pals [G,S,3] uint8, G <= 256) on the working
-    device. Returns [N,8,8] uint8 on that device."""
+    device. Returns [N,8,8] uint8 on that device. `stats`: as
+    _dedup_keys."""
     dev = tiles_rgb.device
     n = tiles_rgb.shape[0]
     if n == 0:
         return torch.zeros((0, TILE_W, TILE_W), dtype=torch.uint8,
                            device=dev)
-    uniq, inv, pals = _dedup_keys(tiles_rgb, group_pals, pal_group)
+    uniq, inv, pals = _dedup_keys(tiles_rgb, group_pals, pal_group, stats)
     # the [keys,S,L,3] candidate averages bound the chunk to ~1 GB
     chunk = max(1024, (1 << 24) // (pals.shape[1] * mixed_colors))
     plan_parts, count_parts = [], []

@@ -1,9 +1,11 @@
 """Palette quantization: the counterpart of tiler_tpu/ops/palette.py.
 
 DL3 runs in the package's C++ library (tiler_tpu_torch.native, built by
-the host compiler at first use). The Value-at-Risk quantizer, the LHS
-entry sort and the packed/RGB converters are host numpy, as in the JAX
-package.
+the host compiler at first use), and so does the Value-at-Risk quantizer
+that the Dither step calls (native.var_quant_tiles); both calls release
+the interpreter lock. var_palette is VAR in host numpy, as in the JAX
+package: the plain version that the native one is held to. The LHS entry
+sort and the packed/RGB converters are host numpy.
 """
 from __future__ import annotations
 

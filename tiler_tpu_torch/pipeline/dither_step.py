@@ -1,11 +1,11 @@
 """Dither step: the counterpart of tiler_tpu/pipeline/dither_step.py.
 
 Per keyframe: gather its source tiles on the device, PsyV (LAB) features
-and k-means into palette_count groups (prepare); DL3 (native) or VAR
-(host numpy) per group on the host in a worker thread (quantize),
-overlapping the next keyframe's prepare; sort palettes by use (finish);
-then the Knoll or Yliluoma scan over every active tile and the mirror
-canonicalization, both on the device. The prepare's feature rows and
+and k-means into palette_count groups (prepare); DL3 or VAR per group on
+the host in a worker thread (quantize), both native and off the
+interpreter lock, overlapping the next keyframe's prepare; sort palettes
+by use (finish); then the Knoll or Yliluoma scan over every active tile
+and the mirror canonicalization, both on the device. The prepare's feature rows and
 k-means assignment and the Knoll scan's row-parallel halves are cut
 across the state's mesh (parallel.mesh_pipeline.map_rows; the same bytes
 at any shard count); Yliluoma stays on the mesh's first device.
@@ -13,12 +13,14 @@ at any shard count); Yliluoma stays on the mesh's first device.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import functools
 import os
 
 import numpy as np
 import torch
 
+from .. import native
 from ..constants import TILE_W, palette_pattern
 
 from ..ops import dither, features, palette
@@ -68,9 +70,11 @@ def prepare_dither_keyframe(state: EncoderState, k: int) -> None:
     state.tile_dpi[cell_tiles] = labels
 
 
-def quantize_keyframe_palettes(state: EncoderState, k: int) -> np.ndarray:
+def quantize_keyframe_palettes(state: EncoderState, k: int) -> tuple:
     """DL3 or VAR palettes of keyframe k, one per k-means group, entries
-    in LHS order. Returns use counts [P] (by tile refs)."""
+    in LHS order. Returns (use counts [P] by tile refs, [P, 2] each VAR
+    group's distinct colours and merges, zeros under DL3). Each group's
+    VAR job is a span 'dither/var' on the pool's thread."""
     cfg = state.config
     s, e = state.keyframes[k]
     cell_tiles = state.tm_tile[s:e + 1].ravel()
@@ -81,6 +85,7 @@ def quantize_keyframe_palettes(state: EncoderState, k: int) -> np.ndarray:
     pal_indexes = np.zeros((cfg.palette_count, cfg.tile_palette_size),
                            np.uint32)
     total_budget = (e - s + 1) * state.tilemap_size * TILE_W * TILE_W
+    var_stats = np.zeros((cfg.palette_count, 2), np.int64)
 
     def quantize_one(p: int):
         sel = cell_tiles[active & (dpi == p)]
@@ -91,20 +96,19 @@ def quantize_keyframe_palettes(state: EncoderState, k: int) -> np.ndarray:
                 cfg.dl3_bin_cap)
             entries = palette.rgb_to_packed(pal16)
         else:
-            px = state.tiles_rgb[sel].reshape(-1, 3)
-            cols, counts = np.unique(palette.rgb_to_packed(px),
-                                     return_counts=True)
-            entries = palette.var_palette(
-                cols, counts.astype(np.int64), total_budget, cfg.pal_var,
-                cfg.tile_palette_size, cfg.palette_count, pattern[p])
+            with span('dither/var'):
+                entries, colours, merges = native.var_quant_tiles(
+                    state.tiles_rgb, sel, total_budget, cfg.pal_var,
+                    cfg.tile_palette_size, cfg.palette_count, pattern[p])
+            var_stats[p] = colours, merges
         pal_indexes[p] = palette.sort_palette_lhs(entries)
 
-    # the native DL3 call releases the interpreter lock (VAR does not)
+    # the native DL3 and VAR calls release the interpreter lock
     workers = min(os.cpu_count() or 1, 8)
     with cf.ThreadPoolExecutor(workers) as ex:
         list(ex.map(quantize_one, range(cfg.palette_count)))
     state.palettes_rgb[k] = palette.packed_to_rgb(pal_indexes)
-    return use_counts
+    return use_counts, var_stats
 
 
 def finish_quantize_keyframe(state: EncoderState, k: int,
@@ -138,7 +142,7 @@ def canonicalize_mirrors(tiles_u8: torch.Tensor):
 
 
 DITHER_PHASES = ('prepare_kmeans', 'quantize', 'dither', 'features',
-                 'kmeans_pp', 'lloyd', 'mirrors')
+                 'kmeans_pp', 'lloyd', 'mirrors', 'var', 'yliluoma')
 
 
 def run_dither(state: EncoderState) -> EncoderState:
@@ -150,17 +154,26 @@ def run_dither(state: EncoderState) -> EncoderState:
     'features' (PsyV LAB rows), 'kmeans_pp' (the k-means++ seeding) and
     'lloyd' (Lloyd's iterations), both opened in ops.kmeans.kmeans_core;
     'quantize' the blocked wait on the quantizers, 'dither' the scans,
-    'mirrors' the mirror canonicalization with its download and the
-    tilemap copies."""
+    which under Yliluoma hold 'yliluoma' (the scan up to and with its
+    synchronize), 'mirrors' the mirror canonicalization with its download
+    and the tilemap copies; 'var' sums the VAR jobs of the quantize
+    pool's threads, which run side by side. metrics['dither_var'] counts
+    VAR's groups, distinct colours and merges, metrics['dither_plan_keys']
+    the unique (group, colour) keys the scans planned."""
     cfg = state.config
+    plan_stats = {'plan_keys': 0}
     if cfg.use_thomas_knoll:
         dither_cached = functools.partial(
             dither.knoll_dither_tiles_cached,
-            map_rows=functools.partial(map_rows, state.mesh))
+            map_rows=functools.partial(map_rows, state.mesh),
+            stats=plan_stats)
+        scan_span = contextlib.nullcontext
     else:
         dither_cached = functools.partial(
             dither.yliluoma_dither_tiles_cached,
-            mixed_colors=cfg.yliluoma_mix)
+            mixed_colors=cfg.yliluoma_mix, stats=plan_stats)
+        scan_span = functools.partial(span, 'dither/yliluoma')
+    var_stats = np.zeros(2, np.int64)
     n_kf = len(state.keyframes)
     dev = state.device
     kf_of = state.kf_of_frame()
@@ -188,8 +201,10 @@ def run_dither(state: EncoderState) -> EncoderState:
             batch = range(b0, min(b0 + kb, n_kf))
             with span('dither/quantize'):
                 for k in batch:
-                    finish_quantize_keyframe(state, k, futs[k].result())
-            with span('dither/dither'):
+                    use_counts, group_stats = futs[k].result()
+                    var_stats += group_stats.sum(0)
+                    finish_quantize_keyframe(state, k, use_counts)
+            with span('dither/dither'), scan_span():
                 rows = np.flatnonzero((act_kf >= batch.start)
                                       & (act_kf < batch.stop))
                 if rows.size:
@@ -219,4 +234,9 @@ def run_dither(state: EncoderState) -> EncoderState:
         state.tm_h = hf[flat_tiles].reshape(f, th, tw)
         state.tm_v = vf[flat_tiles].reshape(f, th, tw)
     state.metrics['dither_phases'] = phases('dither', before, DITHER_PHASES)
+    state.metrics['dither_plan_keys'] = plan_stats['plan_keys']
+    if not cfg.use_dl3:
+        state.metrics['dither_var'] = {
+            'groups': cfg.palette_count * n_kf,
+            'colours': int(var_stats[0]), 'merges': int(var_stats[1])}
     return state

@@ -51,11 +51,11 @@ accumulator's delta over the step, into its phase dict
 that a phase only enqueues is finished, and waited for, by a later one.
 With no profiler running a span costs two clock reads, the lock and
 record_function's cheap path, and the program opens a few dozen a run:
-none inside a per-draw, per-iteration or per-search-call loop, none in
-the quantize pool's threads. Save's compression pool opens one span per
-(keyframe stream, encoder) job on its worker threads, so those labels'
-seconds add up the jobs run side by side; a profiler started on the
-encode thread need not record them.
+none inside a per-draw, per-iteration or per-search-call loop. Save's
+compression pool opens one span per (keyframe stream, encoder) job, and
+Dither's quantize pool one per VAR group, on their worker threads, so
+those labels' seconds add up the jobs run side by side; a profiler
+started on the encode thread need not record them.
 """
 from __future__ import annotations
 
